@@ -8,12 +8,20 @@ profiles three batches of each search lane (fast, exact, decoded-cache)
 and one 1M-row encode with torch.profiler. For each it prints the wall
 time per batch (CUDA events), the device time the profiler attributes to
 kernels and copies, their ratio (the busy share), and the top device
-operations. Needs one CUDA card.
+operations. Then it builds chip_smoke.py's IVF-ADC index (coarseK 8192,
+m 16, K 256) on the same base, profiles search_fast at B = 256 for each
+nprobe and the reference engine search() at nprobe 16 the same way, and
+splits one build into device encode, copy to the host and host layout
+(host clock), with the coarse cells' sizes beside the bucket capacity.
+Needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import sys
+import time
+
+import numpy as np
 
 import torch
 from torch.autograd import DeviceType
@@ -72,7 +80,39 @@ def main() -> int:
         e.add(base)
         e._materialize()
     profile_lane("encode 1M", encode, stamp)
+    profile_ivf(res["_base"], q, res["_gt"], stamp)
     return 0
+
+
+def profile_ivf(base, q, gt, stamp: str) -> None:
+    """IVF-ADC lanes at B = 256, then one build split by stage."""
+    k, b = chip_smoke.K, chip_smoke.IVF_B
+    ivf = chip_smoke.phase_ivf(base, q, gt)["_index"]
+    qb = q[:b]
+    for p in chip_smoke.IVF_NPROBES:
+        profile_lane(f"IVF search_fast nprobe {p}",
+                     lambda p=p: ivf.search_fast(qb, k, nprobe=p), stamp)
+    profile_lane("IVF search nprobe 16",
+                 lambda: ivf.search(qb, k, nprobe=16), stamp)
+
+    t0 = time.perf_counter()
+    parts = [ivf.encode_chunk(base[s:s + ivf.ENC_CHUNK])
+             for s in range(0, base.shape[0], ivf.ENC_CHUNK)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    host = [torch.cat([p[j] for p in parts]).cpu().numpy() for j in range(3)]
+    t2 = time.perf_counter()
+    ivf.build_from_codes(*host)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = np.bincount(host[0], minlength=ivf.coarse_k)
+    cap = ivf._buckets.shape[1]
+    print(f"IVF build 1M: encode {t1 - t0:.3f} s, copy {t2 - t1:.3f} s, "
+          f"host layout {t3 - t2:.3f} s (host clock) {stamp}")
+    print(f"IVF cells: sizes min {counts.min()} median "
+          f"{int(np.median(counts))} max {counts.max()}, "
+          f"{int((counts > cap).sum())} cells above the bucket cap {cap}, "
+          f"tail {int(np.maximum(counts - cap, 0).sum())} {stamp}")
 
 
 if __name__ == "__main__":

@@ -22,14 +22,27 @@
    tiles the index picks at 1M (2,048 for the decode scan, 4,096 for the
    cached scan). The `kernels` line reports this comparison.
 6. Times (CUDA events) of fast, exact and decoded-cache search at 1M x
-   8192, of each kernel beside its twin, and encode codes/s; then one JSON
-   line describing the kernels and, last, the device line.
+   8192, of each kernel beside its twin, and encode codes/s.
+7. IVF-ADC at the reference operating point (coarseK 8192, m 16, K 256,
+   opq/src/IVFOPQ.cpp:56-63) on the same 1M base, queries and ground
+   truth: the `ivf_page` kernel against its twin on seeded random inputs
+   (pad rows, masked segments, Bpad > B); IVFADCIndex.train on 262,144
+   vectors (10 + 10 iterations) -> build (codes/s) -> search_fast at
+   B = 256, k = 10, nprobe 8 / 16 / 64 over 2,048 queries -> the reference
+   engine search() at nprobe 16. Asserts: the kernel launched, no page
+   dropped, ids in [0, n) or -1 without duplicates, finite distances,
+   |recall@10(search_fast) - recall@10(search)| <= 1.0 point at nprobe 16.
+   Then the kernel against its twin on one nprobe-16 batch's own
+   arguments, and times (CUDA events) of search_fast, search() and the
+   kernel beside its twin.
+8. One JSON line describing the three kernels and, last, the device line.
 
-Every kernel-against-twin check demands segpack and tiletop bitwise
+Every ADC kernel-against-twin check demands segpack and tiletop bitwise
 equal, except that a row whose norm/qs lies within 1e-4 of a half-integer
 may move its key by seg (float32 summation order); such rows are counted
-and printed. Any failure raises, so the exit code is non-zero and no
-result is printed.
+and printed. The IVF kernel sums no floats, so it must equal its twin
+bitwise everywhere. Any failure raises, so the exit code is non-zero and
+no result is printed.
 """
 
 from __future__ import annotations
@@ -47,6 +60,10 @@ N_DB, N_QUERIES, N_TRAIN, N_REC = 1_000_000, 8192, 131_072, 2048
 D, M, KSUB, K = 128, 8, 256, 10
 DEV = "cuda"
 KERNEL_SRC = "cvt_tpu_torch/csrc/adc_scan.cu"
+IVF_SRC = "cvt_tpu_torch/csrc/ivf_scan.cu"
+# IVF-ADC at the reference operating point (_bench_ivf.py:63-64's training)
+IVF_KC, IVF_M, IVF_SAMPLE, IVF_ITERS, IVF_B = 8192, 16, 262_144, 10, 256
+IVF_NPROBES, IVF_REF_NPROBE = (8, 16, 64), 16
 
 
 def card_line() -> str:
@@ -247,7 +264,8 @@ def phase_main_path() -> dict:
     assert res["cached_top1_equal"], "decoded-cache top-1 != fast top-1"
     assert res["cached_same_tile_ids_equal"], "decoded-cache ids != fast"
     assert abs(res["parity_pt"]) <= 1.0, res["parity_pt"]
-    res["_index"], res["_q"] = idx, q_dev
+    res["_index"], res["_q"], res["_base"], res["_gt"] = (idx, q_dev,
+                                                          base_dev, gt)
     return res
 
 
@@ -271,6 +289,150 @@ def phase_timing(idx, q_dev, dec_args, cached_args, reps: int) -> dict:
         lambda: T.adc_segmin_cached(*cached_args), reps)
     out["adc_segmin_cached_plain_ms"] = cuda_ms(
         lambda: T.adc_segmin_cached_plain(*cached_args), 1)
+    return out
+
+
+def random_ivf_args(d: int, b: int, seed: int = SEED):
+    """Seeded ivf_page arguments over 64 pages of 512 rows (seg 32) for a
+    batch of b queries: BIG pad rows and a whole page of them, BIG-masked
+    cip entries and padded query columns, a repeated fill page in sel."""
+    from cvt_tpu_torch.ops.kernels import ivf_scan as V
+    g = torch.Generator().manual_seed(seed)
+    nvcap, _ = V._ivf_pack_caps(32, d)
+    lp, spt, n_pages, s = 512, 16, 64, 48
+    bpad = -(-b // 128) * 128
+    qs = torch.rand((1,), generator=g) + 0.5
+    dec8_t = torch.randint(-127, 128, (d, n_pages * lp), generator=g,
+                           dtype=torch.int8)
+    nrm = torch.rand((n_pages * lp, 1), generator=g) * 0.9 * nvcap * qs
+    nrm[torch.rand(nrm.shape, generator=g) < 0.1] = V.BIG
+    nrm[5 * lp:6 * lp] = V.BIG
+    sel = torch.randperm(n_pages, generator=g)[:s].to(torch.int32)
+    sel[-4:] = 0
+    cip = torch.rand((s * spt, bpad), generator=g) * 0.9 * 127 ** 2 * d * qs
+    cip[torch.rand(cip.shape, generator=g) < 0.3] = V.BIG
+    cip[-4 * spt:] = V.BIG
+    cip[:, b:] = V.BIG
+    q2s = torch.randint(-127, 128, (bpad, d), generator=g, dtype=torch.int8)
+    q2s[b:] = 0
+    return [x.to(DEV) for x in (q2s, qs, dec8_t, nrm, cip, sel)] + [lp, 32]
+
+
+def compare_ivf_kernel(args) -> dict:
+    """The ivf_page kernel against its twin on the same arguments:
+    bitwise, or raise."""
+    from cvt_tpu_torch.ops.kernels import ivf_scan as V
+    got = V.ivf_pages_segmin(*args)
+    want = V.ivf_pages_segmin_plain(*args)
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError(f"ivf_page kernel differs from its twin by "
+                             f"{err}")
+    return {"max_abs_err": err, "shape": list(got.shape)}
+
+
+def ivf_batches(idx, q_dev, fn):
+    """fn(idx, batch) over the first N_REC queries in batches of IVF_B;
+    the results concatenated."""
+    outs = [fn(idx, q_dev[s:s + IVF_B]) for s in range(0, N_REC, IVF_B)]
+    return [torch.cat([o[j] for o in outs]) for j in range(len(outs[0]))]
+
+
+def fast_batch(idx, q, nprobe: int):
+    """search_fast on one batch -> (dists, ids, n_dropped as [1])."""
+    d, i, dropped = idx.search_fast(q, K, nprobe=nprobe)
+    return d, i, dropped.reshape(1)
+
+
+def check_ids(d, i, n: int, name: str) -> None:
+    """ids in [0, n) or -1, no duplicate id in a row, finite distances
+    wherever an id is given."""
+    ic = i.cpu().numpy()
+    assert ((ic >= 0) & (ic < n) | (ic == -1)).all(), name
+    for row in ic:
+        v = row[row >= 0]
+        assert len(set(v.tolist())) == len(v), name
+    assert bool(torch.isfinite(d[i >= 0]).all()), name
+
+
+def phase_ivf(base_dev, q_dev, gt) -> dict:
+    """Step 7's main path: train, build, search_fast, search."""
+    from cvt_tpu_torch.index import IVFADCIndex
+    from cvt_tpu_torch.ops.kernels import ivf_scan as V
+    from cvt_tpu_torch.utils import recall_at_k
+    res = {}
+    idx = IVFADCIndex(coarse_k=IVF_KC, m=IVF_M, k=KSUB, device=DEV)
+    t0 = time.perf_counter()
+    idx.train(torch.Generator().manual_seed(SEED), base_dev,
+              coarse_iters=IVF_ITERS, pq_iters=IVF_ITERS, sample=IVF_SAMPLE)
+    torch.cuda.synchronize()
+    res["train_s"] = time.perf_counter() - t0
+    idx.encode_chunk(base_dev[:IVFADCIndex.ENC_CHUNK])      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx.build(base_dev)
+    torch.cuda.synchronize()
+    res["build_codes_per_s"] = N_DB / (time.perf_counter() - t0)
+    res["pages"] = idx._pg_dec8_t.shape[1] // idx._pg_lp
+    res["rows_padded"] = idx._pg_dec8_t.shape[1]
+    res["tail_len"] = idx.tail_len
+    res["bucket_cap"] = idx._buckets.shape[1]
+
+    n = idx.ntotal
+    V.ivf_pages_segmin.launches = 0
+    for nprobe in IVF_NPROBES:
+        d, i, dropped = ivf_batches(
+            idx, q_dev, lambda x, q: fast_batch(x, q, nprobe))
+        check_ids(d, i, n, f"search_fast nprobe {nprobe}")
+        res[f"recall_at_10_fast_{nprobe}"] = recall_at_k(i, gt, k=10)
+        res[f"recall_at_1_fast_{nprobe}"] = recall_at_k(i, gt, k=1)
+        res[f"n_dropped_{nprobe}"] = int(dropped.sum())
+    d, i = ivf_batches(idx, q_dev, lambda x, q: x.search(
+        q, K, nprobe=IVF_REF_NPROBE))
+    torch.cuda.synchronize()
+    res["launches"] = V.ivf_pages_segmin.launches
+    check_ids(d, i, n, "search")
+    res["recall_at_10_ref"] = recall_at_k(i, gt, k=10)
+    res["recall_at_1_ref"] = recall_at_k(i, gt, k=1)
+    res["parity_pt"] = 100 * (res["recall_at_10_ref"]
+                              - res[f"recall_at_10_fast_{IVF_REF_NPROBE}"])
+    assert res["launches"] > 0, "the ivf_page kernel never launched"
+    for nprobe in IVF_NPROBES:
+        assert res[f"n_dropped_{nprobe}"] == 0, nprobe
+    assert abs(res["parity_pt"]) <= 1.0, res["parity_pt"]
+    res["_index"] = idx
+    return res
+
+
+def main_path_ivf_args(idx, q_dev):
+    """The ivf_page kernel's arguments in one nprobe-16 search_fast batch,
+    recorded where the wrapper validates them before its launch."""
+    from cvt_tpu_torch.ops.kernels import ivf_scan as V
+    seen = []
+    check = V._check_launch
+
+    def record(*args):
+        seen.append(args)
+        check(*args)
+    V._check_launch = record
+    try:
+        idx.search_fast(q_dev[:IVF_B], K, nprobe=IVF_REF_NPROBE)
+    finally:
+        V._check_launch = check
+    return list(seen[0])
+
+
+def phase_ivf_timing(idx, q_dev, args, reps: int) -> dict:
+    """Step 7's CUDA-event times at the IVF path's shapes."""
+    from cvt_tpu_torch.ops.kernels import ivf_scan as V
+    q = q_dev[:IVF_B]
+    out = {f"fast_{p}_ms": cuda_ms(lambda: idx.search_fast(q, K, nprobe=p),
+                                   reps) for p in IVF_NPROBES}
+    out["ref_ms"] = cuda_ms(lambda: idx.search(q, K, nprobe=IVF_REF_NPROBE),
+                            reps)
+    out["ivf_page_ms"] = cuda_ms(lambda: V.ivf_pages_segmin(*args), reps)
+    out["ivf_page_plain_ms"] = cuda_ms(
+        lambda: V.ivf_pages_segmin_plain(*args), 2)
     return out
 
 
@@ -312,8 +474,13 @@ def main() -> int:
                   compare_both(*random_kernel_args(65_536, 1024,
                                                    65_536 - 1000)), stamp)
 
+    ivf_rand = compare_ivf_kernel(random_ivf_args(D, 200))
+    print(f"kernel vs twin, random inputs, S=48 pages B=200 (Bpad 256): "
+          f"ivf_page max|diff| {ivf_rand['max_abs_err']} {stamp}")
+
     res = phase_main_path()
     idx, q_dev = res.pop("_index"), res.pop("_q")
+    base_dev, gt = res.pop("_base"), res.pop("_gt")
     print(f"main path: data {res['data_s']:.1f} s, OPQ train "
           f"{res['opq_train_s']:.1f} s {stamp}")
     print(f"encode: {res['encode_codes_per_s']:.0f} codes/s {stamp}")
@@ -342,6 +509,41 @@ def main() -> int:
         print(f"{name} 1M x 8192: kernel {tm[name + '_ms']:.3f} ms, twin "
               f"{tm[name + '_plain_ms']:.3f} ms {stamp}")
 
+    iv = phase_ivf(base_dev, q_dev, gt)
+    ivf_idx = iv.pop("_index")
+    print(f"IVF-ADC {IVF_KC} cells, m={IVF_M}, K={KSUB}: train "
+          f"{iv['train_s']:.1f} s, build {iv['build_codes_per_s']:.0f} "
+          f"codes/s, {iv['pages']} pages ({iv['rows_padded']} padded "
+          f"rows), bucket cap {iv['bucket_cap']}, tail {iv['tail_len']} "
+          f"{stamp}")
+    for p in IVF_NPROBES:
+        print(f"IVF search_fast nprobe {p}: recall@1 "
+              f"{iv[f'recall_at_1_fast_{p}']:.4f} recall@10 "
+              f"{iv[f'recall_at_10_fast_{p}']:.4f}, dropped pages "
+              f"{iv[f'n_dropped_{p}']} {stamp}")
+    print(f"IVF search (reference engine) nprobe {IVF_REF_NPROBE}: recall@1 "
+          f"{iv['recall_at_1_ref']:.4f} recall@10 "
+          f"{iv['recall_at_10_ref']:.4f}; parity (reference - fast "
+          f"recall@10) {iv['parity_pt']:.2f} pt (limit 1.0), tail "
+          f"{iv['tail_len']} entries scanned by every reference query "
+          f"{stamp}")
+    print(f"launches during the IVF path: ivf_page {iv['launches']} {stamp}")
+    ivf_args = main_path_ivf_args(ivf_idx, q_dev)
+    ivf_cmp = compare_ivf_kernel(ivf_args)
+    print(f"kernel vs twin, IVF main path's arguments (nprobe "
+          f"{IVF_REF_NPROBE}, B={IVF_B}, segpack {ivf_cmp['shape']}): "
+          f"ivf_page max|diff| {ivf_cmp['max_abs_err']} {stamp}")
+    itm = phase_ivf_timing(ivf_idx, q_dev, ivf_args, reps=10)
+    for p in IVF_NPROBES:
+        ms = itm[f"fast_{p}_ms"]
+        print(f"IVF search_fast 1M, B={IVF_B}, nprobe {p}: {ms:.3f} "
+              f"ms/batch, {IVF_B / ms * 1e3:.0f} QPS {stamp}")
+    print(f"IVF search (reference engine) nprobe {IVF_REF_NPROBE}: "
+          f"{itm['ref_ms']:.3f} ms/batch {stamp}")
+    print(f"ivf_page at the nprobe-{IVF_REF_NPROBE} batch: kernel "
+          f"{itm['ivf_page_ms']:.3f} ms, twin {itm['ivf_page_plain_ms']:.3f}"
+          f" ms {stamp}")
+
     kernels = [
         {"name": name, "route": "cuda", "source": KERNEL_SRC,
          "replaces": f"cvt_tpu/ops/pallas/adc_scan.py:{line}",
@@ -349,6 +551,11 @@ def main() -> int:
          "max_abs_err": cmp[name]["max_abs_err"], "ms": tm[name + "_ms"],
          "plain_ms": tm[name + "_plain_ms"]}
         for name, line in (("adc_segmin", 76), ("adc_segmin_cached", 448))]
+    kernels.append({
+        "name": "ivf_page", "route": "cuda", "source": IVF_SRC,
+        "replaces": "cvt_tpu/ops/pallas/ivf_scan.py:82",
+        "launches": iv["launches"], "max_abs_err": ivf_cmp["max_abs_err"],
+        "ms": itm["ivf_page_ms"], "plain_ms": itm["ivf_page_plain_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

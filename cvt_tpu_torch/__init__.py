@@ -12,9 +12,11 @@ This package imports `torch` and numpy only, never `jax` or `cvt_tpu`.
 Subpackages:
   io        fvecs/bvecs/ivecs, SIFT-like synthetic data
   ops       normalize, pairwise distances, stable top-k, k-means;
-            ops/kernels the ADC scan kernels and their twins
+            ops/kernels the flat ADC and IVF page scan kernels and
+            their twins
   quant     ProductQuantizer, OPQ
-  index     FlatIndex (exact), FlatADCIndex (PQ/OPQ codes)
+  index     FlatIndex (exact), FlatADCIndex (PQ/OPQ codes),
+            IVFADCIndex (inverted lists of residual PQ codes)
   utils     recall@k
   convert   numpy parameters of `cvt_tpu` objects -> the port's objects
 """

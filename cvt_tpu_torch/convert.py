@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from cvt_tpu_torch.index.flat_adc import FlatADCIndex
+from cvt_tpu_torch.index.ivf_adc import IVFADCIndex
 from cvt_tpu_torch.quant.opq import OPQ
 from cvt_tpu_torch.quant.pq import ProductQuantizer
 
@@ -40,4 +41,18 @@ def flat_adc_from_numpy(codes, dec_sq, codebooks, rotation=None,
                                  device=idx.device)
     idx._dec_sq = torch.as_tensor(np.array(dec_sq, np.float32),
                                   device=idx.device)
+    return idx
+
+
+def ivf_adc_from_numpy(centroids, codebooks, bucket_cap=None,
+                       device=None) -> IVFADCIndex:
+    """A `cvt_tpu` IVFADCIndex's trained coarse quantizer (centroids
+    [Kc, D]) and residual PQ (codebooks [M, K, ds]) -> the port's
+    IVFADCIndex, trained and ready for build()/build_from_codes()."""
+    cb = np.array(codebooks, np.float32)
+    idx = IVFADCIndex(coarse_k=np.shape(centroids)[0], m=cb.shape[0],
+                      k=cb.shape[1], bucket_cap=bucket_cap, device=device)
+    idx.centroids = torch.as_tensor(np.array(centroids, np.float32),
+                                    device=idx.device)
+    idx.pq = pq_from_numpy(cb, idx.device)
     return idx

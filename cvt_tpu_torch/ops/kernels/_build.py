@@ -1,7 +1,8 @@
 """Build the CUDA sources under `csrc/` with nvcc and load them by ctypes.
 
-The library has a plain C interface (no PyTorch headers), so one nvcc
-call builds it in seconds. It is built for sm_90a (Hopper) on first use
+The library has a plain C interface (no PyTorch headers), so nvcc builds
+it in seconds: one compiler process per source, all started together,
+then one link. It is built for sm_90a (Hopper) on first use
 into `cvt_tpu_torch/_build/` (git-ignored), under a name that carries a
 hash of the sources, so an edited source is never served by a stale
 library. A failed build raises; nothing falls back.
@@ -34,6 +35,9 @@ _SIGNATURES = {
     # dec8_t, norm_col, q2s, qs, npad, d, bpad, n_valid, tile_n, vcap,
     # ibase, segpack, tiletop, stream
     "cvt_adc_segmin_cached": [_P, _P, _P, _P] + [_I] * 7 + [_P, _P, _P],
+    # sel, qs, dec8_t, nrm_col, cip, q2s, n_sel, n_rows, d, bpad, lp, seg,
+    # marker, segpack, stream
+    "cvt_ivf_pages_segmin": [_P] * 6 + [_I] * 7 + [_P, _P],
 }
 
 
@@ -60,27 +64,44 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libcvt_kernels_{h.hexdigest()[:12]}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; raise on the first that fails.
+    Returns each command's line and output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(" ".join(cmd) + "\n" + out)
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    return logs
+
+
 def build() -> str:
     """Compile csrc/*.cu into the build directory unless this exact
-    source set is already built. Returns the library's path; the compiler's
-    register/shared-memory report is kept beside it (`.log`)."""
+    source set is already built: each source to an object file, all at
+    once, then one shared library. Returns the library's path; the
+    compiler's register/shared-memory report is kept beside it (`.log`)."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    with open(out[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, out)         # atomic: concurrent builds race safely
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        srcs = [s for s in _sources() if s.endswith(".cu")]
+        objs = [os.path.join(tmp_dir, os.path.basename(s)[:-3] + ".o")
+                for s in srcs]
+        logs = _run_all([[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
+                          "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", o, s]
+                         for s, o in zip(srcs, objs)])
+        tmp = os.path.join(tmp_dir, "lib.so")
+        logs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+        with open(out[:-3] + ".log", "w") as f:
+            f.write("".join(logs))
+        os.replace(tmp, out)     # atomic: concurrent builds race safely
     return out
 
 

@@ -1,0 +1,375 @@
+"""IVF-ADC union-probe page scan: packed segment minima + f32 rescore.
+
+Counterpart of `cvt_tpu.ops.pallas.ivf_scan`. The database is stored
+sorted by coarse cell, each cell padded to a multiple of `seg` rows (every
+segment belongs to one cell), as a decoded int8 residual cache [D, N']
+plus per-row reconstruction norms. A query batch's probed cells resolve to
+the union of the 512-row pages that hold them, and phase 1 scores only the
+selected pages:
+
+    dist(q, row) = ||q||^2 + ||c + d||^2 - 2<q, c> - 2<q, d>
+
+The residual term -2<q, d> is an int8 product against the folded queries,
+the norm ||c + d||^2 rides a per-row f32 column, and the coarse term
+-2<q, c> is constant per (segment, query) and enters as a per-segment
+correction `cip`. Segments of cells a query did not probe carry a marker
+that ranks them below every real candidate, so the union scan returns the
+probed lists' top-k and not the batch union's.
+
+Phase 1 is the hand-written CUDA kernel `ivf_page_kernel`
+(`csrc/ivf_scan.cu`) for tensors on the card and its plain PyTorch twin
+`ivf_pages_segmin_plain` for tensors on the CPU; the wrapper
+`ivf_pages_segmin` counts its launches in `.launches` and never falls back
+from one to the other. Phase 2 (PyTorch) takes the k+slack best segments
+per query and rescores their rows exactly in f32 from an int16 decode.
+
+Integer packing (key = (ip + norm_i + cip_i) * seg + lane) and its bounds
+are those of `_ivf_pack_caps`. The clips run in float32, so a pad row's
+norm_i and a masked segment's cip_i are float32(marker), which differs
+from the integer marker when marker > 2^24 (32,522,144 against 32,522,143
+at seg = 32, D = 128); the bounds hold for that value too.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from cvt_tpu_torch.ops.kernels import _build
+from cvt_tpu_torch.ops.kernels.adc_scan import (_fold_queries,
+                                                _quantize_codebooks)
+from cvt_tpu_torch.ops.topk import top_k_smallest
+
+BIG = 3.4e38
+_ROWS = 128                  # rows per CUDA block: lp must be a multiple
+_KERNEL_SEGS = (16, 32, 64, 128)
+_TWIN_PAGES = 64             # pages the twin scores per step (bounds memory)
+
+
+def _ivf_pack_caps(seg: int, d: int) -> tuple[int, int]:
+    """(nvcap, marker) for the IVF packing.
+
+    With A = 2^31 // seg, ipb = 127*127*d and markers NIB = CIB = marker:
+      valid max  = ipb + nvcap + ipb
+      masked min = CIB - ipb            > valid max
+      pad min    = NIB - ipb            > valid max
+      global max = ipb + NIB + CIB      <= A - 2*seg
+    (a pad row of a masked segment carries both markers: the budget
+    covers that worst case, with the markers rounded up to float32)."""
+    ipb = 127 * 127 * d
+    a = (2 ** 31) // seg
+    nvcap = (a - 7 * ipb - 2 * seg - 2) // 2 - 1
+    if nvcap <= 0:
+        raise ValueError(
+            f"IVF packed scan infeasible for seg={seg}, d={d}: no int32 "
+            f"headroom; reduce seg or d")
+    marker = nvcap + 3 * ipb + 1
+    return nvcap, marker
+
+
+def _marker_f32(marker: int) -> float:
+    """The marker as the float32 clip bound rounds it."""
+    return float(np.float32(marker))
+
+
+def _clip_i32(x: torch.Tensor, qs, mk: float) -> torch.Tensor:
+    """int32 of clip(round(x / qs), 0, mk) in float32 (half to even)."""
+    return torch.clamp(torch.round(x / qs), 0.0, mk).to(torch.int32)
+
+
+def ivf_pages_segmin_plain(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int,
+                           seg: int):
+    """Plain PyTorch twin of the `ivf_page` kernel (same arguments and
+    output); runs on any device.
+
+    q2s [Bpad, D] int8 folded queries, qs their float32 scale (one
+    element); dec8_t [D, N'] int8 cell-sorted residual cache; nrm_col
+    [N', 1] f32 (BIG on pad rows); cip [S*spt, Bpad] f32 per-segment
+    coarse terms (BIG = masked); sel [S] int32 selected page ids. Returns
+    segpack [S*spt, Bpad] int32: for slot i and segment s of page sel[i],
+    min over the segment's rows of (ip + norm_i + cip_i) * seg + row % seg.
+
+    The scores are float32 products of int8 operands: every partial sum is
+    an integer below 127^2 * D < 2^24, so the int32 cast is exact."""
+    bpad, d = q2s.shape
+    s = sel.shape[0]
+    spt = lp // seg
+    _, marker = _ivf_pack_caps(seg, d)
+    mk = _marker_f32(marker)
+    n_pages = dec8_t.shape[1] // lp
+    pages = dec8_t.view(d, n_pages, lp)
+    nrm = nrm_col[:, 0].view(n_pages, lp)
+    qf = q2s.float().T                                           # [D, Bpad]
+    lane = torch.arange(lp, device=q2s.device, dtype=torch.int32) % seg
+    cip_sh = _clip_i32(cip, qs, mk) * seg                        # [S*spt, Bpad]
+    out = torch.empty((s * spt, bpad), dtype=torch.int32, device=q2s.device)
+    sel_l = sel.long()
+    for p0 in range(0, s, _TWIN_PAGES):
+        pg = sel_l[p0:p0 + _TWIN_PAGES]
+        c = pg.shape[0]
+        ip = torch.einsum("dcl,db->clb", pages[:, pg, :].float(),
+                          qf).to(torch.int32)                    # [c, lp, Bpad]
+        base = _clip_i32(nrm[pg], qs, mk) * seg + lane           # [c, lp]
+        mins = (ip * seg + base[:, :, None]).view(c, spt, seg, bpad).amin(2)
+        rows = slice(p0 * spt, (p0 + c) * spt)
+        out[rows] = mins.reshape(c * spt, bpad) + cip_sh[rows]
+    return out
+
+
+def _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int,
+                  seg: int) -> None:
+    """Validate what the kernel takes before its pointers are passed."""
+    bpad, d = q2s.shape
+    dev = q2s.device
+    tensors = dict(q2s=q2s, qs=qs, dec8_t=dec8_t, nrm_col=nrm_col, cip=cip,
+                   sel=sel)
+    dtypes = dict(q2s=torch.int8, qs=torch.float32, dec8_t=torch.int8,
+                  nrm_col=torch.float32, cip=torch.float32, sel=torch.int32)
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q2s on {dev}")
+        if t.dtype != dtypes[name]:
+            raise TypeError(f"{name} must be {dtypes[name]}, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 4:
+            raise ValueError(f"{name} must be contiguous and 4-byte aligned")
+    if qs.numel() != 1:
+        raise ValueError("qs must hold one float32 scale")
+    if bpad % 128 or d % 4:
+        raise ValueError(f"q2s [{bpad}, {d}]: need Bpad % 128 == 0 and "
+                         f"D % 4 == 0")
+    if seg not in _KERNEL_SEGS or lp % _ROWS:
+        raise ValueError(f"kernel takes seg in {_KERNEL_SEGS} and lp a "
+                         f"multiple of {_ROWS}; got seg={seg}, lp={lp}")
+    n_rows = dec8_t.shape[1]
+    if dec8_t.shape[0] != d or n_rows % lp or nrm_col.shape != (n_rows, 1):
+        raise ValueError("dec8_t/nrm_col shapes disagree with q2s and lp")
+    if sel.dim() != 1 or cip.shape != (sel.shape[0] * (lp // seg), bpad):
+        raise ValueError(f"cip must be [S*{lp // seg}, {bpad}] for "
+                         f"sel [S]; got {tuple(cip.shape)}")
+
+
+def ivf_pages_segmin(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int, seg: int):
+    """Phase 1 over the selected pages -> segpack [S*spt, Bpad] int32.
+
+    Arguments as `ivf_pages_segmin_plain`. Tensors on the CPU run the
+    twin; tensors on the card launch `ivf_page_kernel` (counted in
+    `ivf_pages_segmin.launches`); any other device raises. Page ids in
+    `sel` must lie in [0, N'/lp): `ivf_union_search` builds them so."""
+    if q2s.device.type == "cpu":
+        return ivf_pages_segmin_plain(q2s, qs, dec8_t, nrm_col, cip, sel,
+                                      lp, seg)
+    if q2s.device.type != "cuda":
+        raise ValueError(f"no ivf_page kernel for {q2s.device}")
+    _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp, seg)
+    bpad, d = q2s.shape
+    _, marker = _ivf_pack_caps(seg, d)
+    s = sel.shape[0]
+    segpack = torch.empty((s * (lp // seg), bpad), dtype=torch.int32,
+                          device=q2s.device)
+    lib = _build.load()
+    with torch.cuda.device(q2s.device):
+        _build.check(lib, lib.cvt_ivf_pages_segmin(
+            sel.data_ptr(), qs.data_ptr(), dec8_t.data_ptr(),
+            nrm_col.data_ptr(), cip.data_ptr(), q2s.data_ptr(), s,
+            dec8_t.shape[1], d, bpad, lp, seg, marker, segpack.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "ivf_pages_segmin")
+    ivf_pages_segmin.launches += 1
+    return segpack
+
+
+ivf_pages_segmin.launches = 0
+
+
+def coarse_probes(q, centroids, nprobe: int):
+    """(coarse_ip [B, Kc], q_sq [B], probes [B, nprobe]): each query's
+    nprobe nearest cells, ties toward the lower cell as lax.top_k breaks
+    them."""
+    coarse_ip = q @ centroids.T
+    q_sq = torch.sum(q * q, dim=-1)
+    c_sq = torch.sum(centroids * centroids, dim=-1)
+    coarse_dist = q_sq[:, None] - 2.0 * coarse_ip + c_sq[None, :]
+    _, probes = top_k_smallest(coarse_dist, nprobe)
+    return coarse_ip, q_sq, probes
+
+
+def _select_pages(page_probed: torch.Tensor, s_max: int):
+    """jnp.nonzero(page_probed, size=s_max, fill_value=0) and its count:
+    the probed page ids in ascending order, then page 0 in the fill slots.
+    A stable sort puts the probed pages first without a host sync."""
+    n_live = torch.sum(page_probed)
+    order = torch.sort((~page_probed).to(torch.int32), stable=True).indices
+    slot = torch.arange(s_max, device=page_probed.device)
+    live = slot < n_live
+    sel = torch.where(live, order[:s_max], 0).to(torch.int32)
+    return sel, live, n_live
+
+
+def ivf_union_search(q, centroids, dec8_t, dec16_rm, srow16, nrm_col,
+                     seg_cell, rowids, srow, dsq_min: float, nprobe: int,
+                     k: int, max_pages: int, lp: int = 512, seg: int = 32,
+                     exact_probe: bool = True, slack: int = 6):
+    """Batched IVF-ADC top-k via the union-probe page scan.
+
+    q [B, D] raw space; centroids [Kc, D]; dec8_t [D, N'] int8 decoded
+    residual cache (cell-sorted, segment-pure); dec16_rm [N', D] int16
+    row-major decode (per-dim scale srow16) for the phase-2 rescore;
+    nrm_col [N', 1] f32 = ||c + d||^2 - dsq_min (BIG on pad rows);
+    seg_cell [N'/seg] int32 owning cell per segment (-1 = dead); rowids
+    [N'] int32 original ids (-1 = pad); srow [D] dequant scales of the
+    int8 cache. Returns (dists [B, k], ids [B, k] with -1 padding,
+    n_dropped: probed pages past max_pages, a 0-dim tensor).
+
+    exact_probe=True masks each query to its own nprobe lists (reference
+    semantics, IVFOPQ.cpp:237-309); False scans the batch union. Float32
+    throughout: keep TF32 off, a changed cip moves round(cip/qs)."""
+    b, d = q.shape
+    n_rows = dec8_t.shape[1]
+    n_pages = n_rows // lp
+    spt = lp // seg
+    kc = centroids.shape[0]
+    nvcap, _ = _ivf_pack_caps(seg, d)
+    dev = q.device
+
+    # ---- probe selection + page union ------------------------------------
+    coarse_ip, q_sq, probes = coarse_probes(q, centroids, nprobe)
+    # which cells each query probed: a [B, Kc] table, gathered below in
+    # place of comparing every cell with every probe
+    probed_bk = torch.zeros((b, kc), dtype=torch.bool, device=dev)
+    probed_bk.scatter_(1, probes, True)
+    probed = probed_bk.any(0)
+    cell_ok = seg_cell >= 0
+    seg_probed = cell_ok & probed[seg_cell.clamp(0, kc - 1)]
+    page_probed = seg_probed.view(n_pages, spt).any(1)
+    s_max = min(max_pages, n_pages)
+    sel, live, n_live = _select_pages(page_probed, s_max)
+    n_dropped = torch.clamp_min(n_live - s_max, 0)
+
+    # ---- per-segment coarse correction rows [S*spt, B] -------------------
+    sel_segs = sel[:, None].long() * spt + torch.arange(spt, device=dev)
+    cells = seg_cell[sel_segs.reshape(-1)]                       # [S*spt]
+    cells_c = cells.clamp(0, kc - 1).long()
+    cip = -2.0 * (q @ centroids[cells_c].T).T                    # [S*spt, B]
+    c0 = torch.amin(torch.where(cells[:, None] >= 0, cip, BIG), dim=0)
+    cipz = cip - c0[None, :]
+    if exact_probe:
+        hit = probed_bk[:, cells_c].T & (cells >= 0)[:, None]
+        cipz = torch.where(hit, cipz, BIG)
+    dead = (cells < 0) | ~live.repeat_interleave(spt)
+    cipz = torch.where(dead[:, None], BIG, cipz)
+
+    # ---- query fold with marker-safe qs clamps ---------------------------
+    # the clamps reach _fold_queries before q2s is quantized, so ip,
+    # norm_i and cip_i share one unit
+    max_nrm = torch.amax(torch.where(nrm_col < BIG / 2, nrm_col, 0.0))
+    max_cip = torch.amax(torch.where(cipz < BIG / 2, cipz, 0.0))
+    qs_min = torch.maximum(max_nrm / nvcap, max_cip / (127 * 127 * d))
+    q2s, qs = _fold_queries(q, srow, qs_min, 1)
+    # the kernel's block spans the padded batch: padded query columns are
+    # masked and dropped by segpack.T[:b]
+    cip_pad = F.pad(cipz, (0, q2s.shape[0] - b), value=BIG)
+    segpack = ivf_pages_segmin(q2s, qs.reshape(1), dec8_t, nrm_col,
+                               cip_pad.contiguous(), sel, lp, seg)
+
+    # ---- phase 2: exact f32 rescore of the winning segments --------------
+    n_take = min(k + slack, segpack.shape[0])
+    # f32 keys, as cvt_tpu ranks them; nearby large keys tie in f32 and the
+    # stable sort breaks ties toward the lower index like lax.top_k
+    _, seg_sel = top_k_smallest(segpack.T[:b].float(), n_take)  # [B, S2]
+    # fill slots duplicate page 0 and must not re-enter here
+    slot_of = seg_sel // spt
+    slot_live = (slot_of < n_live)[:, :, None].expand(b, n_take, seg)
+    slot_live = slot_live.reshape(b, n_take * seg)
+    gseg = sel.long()[slot_of.clamp(0, s_max - 1)] * spt + seg_sel % spt
+    rows = (gseg[:, :, None] * seg
+            + torch.arange(seg, device=dev)[None, None, :]
+            ).reshape(b, n_take * seg)                           # [B, C]
+    rows = rows.clamp(0, n_rows - 1)
+    vec_ids = rowids[rows]                                       # [B, C]
+    cells_r = seg_cell[rows // seg]                              # [B, C]
+    cells_rc = cells_r.clamp(0, kc - 1).long()
+    dec_c = dec16_rm[rows].float()                               # [B, C, D]
+    qf = q * srow16[None, :]
+    ip = torch.sum(dec_c * qf[:, None, :], dim=-1)               # <q, resid>
+    cipv = -2.0 * torch.gather(coarse_ip, 1, cells_rc)
+    nrm_c = nrm_col[rows, 0] + dsq_min
+    dist = q_sq[:, None] + nrm_c + cipv - 2.0 * ip
+    okc = (vec_ids >= 0) & (cells_r >= 0) & (nrm_c < BIG / 2) & slot_live
+    if exact_probe:
+        okc &= torch.gather(probed_bk, 1, cells_rc)
+    dist = torch.where(okc, dist, float("inf"))
+    k_eff = min(k, dist.shape[1])       # tiny index: pool may be < k
+    out_d, j = top_k_smallest(dist, k_eff)
+    ids = torch.gather(vec_ids, 1, j)
+    ok = torch.isfinite(out_d)
+    out_d = torch.where(ok, out_d, float("inf"))
+    ids = torch.where(ok, ids, -1)
+    if k_eff < k:                       # honor the [B, k] contract
+        out_d = F.pad(out_d, (0, k - k_eff), value=float("inf"))
+        ids = F.pad(ids, (0, k - k_eff), value=-1)
+    return out_d, ids, n_dropped
+
+
+def build_page_layout(codes, assign, dsq, codebooks, *, lp: int = 512,
+                      seg: int = 32):
+    """Host-side layout: cell-sorted, segment-pure decoded int8 pages.
+
+    codes [N, M] u8 residual PQ codes; assign [N] int coarse cell; dsq [N]
+    f32 full reconstruction norms; codebooks [M, K, ds] f32. Returns a
+    dict of numpy arrays (see ivf_union_search), bit for bit those of
+    `cvt_tpu`'s build_page_layout."""
+    codes = np.asarray(codes, np.uint8)
+    assign = np.asarray(assign)
+    dsq = np.asarray(dsq, np.float32)
+    n, m = codes.shape
+    cb = np.asarray(codebooks, np.float32)
+    _, k, ds = cb.shape
+    d = m * ds
+    kc = int(assign.max()) + 1 if n else 1
+
+    counts = np.bincount(assign, minlength=kc)
+    padded = -(-counts // seg) * seg                      # per-cell rows
+    total = int(padded.sum())
+    total_pg = -(-max(total, lp) // lp) * lp              # whole pages
+    starts = np.zeros(kc + 1, np.int64)
+    np.cumsum(padded, out=starts[1:])
+
+    order = np.argsort(assign, kind="stable")
+    in_starts = np.zeros(kc + 1, np.int64)
+    np.cumsum(counts, out=in_starts[1:])
+    rank = np.arange(n, dtype=np.int64) - in_starts[assign[order]]
+    dest = starts[assign[order]] + rank                   # [N] slot
+
+    rowids = np.full((total_pg,), -1, np.int32)
+    rowids[dest] = order.astype(np.int32)
+    nrm = np.full((total_pg,), BIG, np.float32)
+    nrm[dest] = dsq[order]
+    dsq_min = float(dsq.min()) if n else 0.0
+    nrm[rowids >= 0] -= dsq_min
+
+    # decoded int8 residual rows: the int8 codebooks of the flat kernels
+    cb_q, srow = _quantize_codebooks(torch.from_numpy(cb))
+    cb_q = cb_q.numpy()                                   # [M, K, ds]
+    dec8 = np.zeros((total_pg, d), np.int8)
+    dec8[dest] = np.concatenate(
+        [cb_q[mm][codes[order, mm]] for mm in range(m)],
+        axis=1) if n else 0
+    dec8_t = np.ascontiguousarray(dec8.T)                 # [D, N']
+    # int16 row-major decode for the exact phase-2 rescore (256x finer)
+    scales16 = np.maximum(np.abs(cb).max(axis=1) / 32767.0, 1e-12)
+    cb_q16 = np.clip(np.rint(cb / scales16[:, None, :]),
+                     -32767, 32767).astype(np.int16)      # [M, K, ds]
+    dec16 = np.zeros((total_pg, d), np.int16)
+    dec16[dest] = np.concatenate(
+        [cb_q16[mm][codes[order, mm]] for mm in range(m)],
+        axis=1) if n else 0
+    srow16 = scales16.reshape(d).astype(np.float32)
+
+    seg_cell = np.full((total_pg // seg,), -1, np.int32)
+    for c in range(kc):
+        if padded[c]:
+            seg_cell[starts[c] // seg:(starts[c] + padded[c]) // seg] = c
+
+    return dict(dec8_t=dec8_t, dec16=dec16, srow16=srow16,
+                nrm_col=nrm[:, None], seg_cell=seg_cell, rowids=rowids,
+                srow=srow.numpy(), dsq_min=dsq_min, lp=lp, seg=seg)
