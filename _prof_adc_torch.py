@@ -13,6 +13,9 @@ m 16, K 256) on the same base, profiles search_fast at B = 256 for each
 nprobe and the reference engine search() at nprobe 16 the same way, and
 splits one build into device encode, copy to the host and host layout
 (host clock), with the coarse cells' sizes beside the bucket capacity.
+Last, chip_smoke.py's SQ lane (1M x 128 L2-normalised: search bf16 and
+int8, search_fast at B = 8,192) and its one-card server (serve with each
+merge at B = 1,024, on a 1-rank NCCL group), profiled the same way.
 Needs one CUDA card.
 """
 
@@ -81,7 +84,28 @@ def main() -> int:
         e._materialize()
     profile_lane("encode 1M", encode, stamp)
     profile_ivf(res["_base"], q, res["_gt"], stamp)
+    profile_sq_serve(res, stamp)
     return 0
+
+
+def profile_sq_serve(res, stamp: str) -> None:
+    """The SQ lanes at B = 8,192 and the server at B = 1,024."""
+    import torch.distributed as dist
+    k = chip_smoke.K
+    sq = chip_smoke.phase_sq(res["_base"], res["_q"])
+    idx, xq = sq["_index"], sq["_xq"]
+    for mode in ("bf16", "int8"):
+        profile_lane(f"SQ search {mode}",
+                     lambda mode=mode: idx[mode].search(xq, k), stamp)
+    profile_lane("SQ search_fast", lambda: idx["bf16"].search_fast(xq, k),
+                 stamp)
+    srv = chip_smoke.phase_serve(res["_index"], res["_q"], res["_gt"],
+                                 res["_ids_ref"])["_servers"]
+    qb = res["_q"][:chip_smoke.SERVE_B]
+    for merge in ("allgather", "ring"):
+        profile_lane(f"serve {merge} B={chip_smoke.SERVE_B}",
+                     lambda merge=merge: srv[merge].serve(qb, k), stamp)
+    dist.destroy_process_group()
 
 
 def profile_ivf(base, q, gt, stamp: str) -> None:

@@ -7,7 +7,8 @@
    precision; builds the CUDA kernels from csrc/ (timed).
 2. Kernel against twin on seeded random inputs: both ADC kernels and
    their plain PyTorch twins (Npad = 65,536, B = 1,024, D = 128, M = 8,
-   K = 256).
+   K = 256), then the decode kernel at every smaller segment size
+   (64 / 32 / 16 / 8, tiles 1,024 and 256, the last tile partly valid).
 3. Main path at the real size (BASELINE config 2 at bench.py's settings):
    synthetic_sift(1M, 128, 8192 fresh queries) -> OPQ.train(M=8, K=256)
    on 131,072 vectors -> FlatADCIndex(device="cuda").add -> exact ground
@@ -35,7 +36,29 @@
    Then the kernel against its twin on one nprobe-16 batch's own
    arguments, and times (CUDA events) of search_fast, search() and the
    kernel beside its twin.
-8. One JSON line describing the three kernels and, last, the device line.
+8. The int8 SQ lane (BASELINE config 1) on the same base and queries,
+   L2-normalised: exact ground truth (FlatIndex, 2,048 queries) ->
+   ScalarQuantizer.train / encode on the card (codes/s) ->
+   FlatSQIndex.add -> search in bf16 and int8 modes and search_fast at
+   B = 8,192, k = 10. Asserts: the cached kernel launched, ids in [0, n),
+   finite distances, |recall@10(search_fast) - recall@10(bf16)| <= 1.0
+   point. Then the cached kernel against its twin at the path's own
+   arguments (Npad 1,000,448, tile 1,024), and times of each mode.
+9. The serving front end (BASELINE config 5) on one card: a 1-rank NCCL
+   group (init_distributed) and a 'db' mesh of 1; MultiHostADCServer
+   over the flat phase's OPQ and 1M codes with the allgather and the ring
+   merge serves 2,048 queries at B = 1,024, k = 10; serve_pipelined
+   [2, 1,024] and ShardedADCSearcher(impl="kernel") must give serve's
+   ids; QueryBatcher answers 8 threads' blocks of 1 / 37 / 256 / 500
+   rows; |recall@1(serve) - recall@1(reference engine)| <= 1.0 point.
+   Then the `adc_segmin` kernel against its twin at the server's own
+   arguments, sharded_kmeans_step against one `_lloyd` step, and
+   `python -m cvt_tpu_torch.cli serve` as a subprocess on a saved pack
+   (batch mode and --stdin), whose ids must equal the in-process serve.
+   Times of serve with each merge and of serve_pipelined.
+10. One JSON line describing the three kernels (launches summed over the
+   paths that run each, max_abs_err the worst of its comparisons) and,
+   last, the device line.
 
 Every ADC kernel-against-twin check demands segpack and tiletop bitwise
 equal, except that a row whose norm/qs lies within 1e-4 of a half-integer
@@ -53,6 +76,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SEED = 0
@@ -64,6 +88,10 @@ IVF_SRC = "cvt_tpu_torch/csrc/ivf_scan.cu"
 # IVF-ADC at the reference operating point (_bench_ivf.py:63-64's training)
 IVF_KC, IVF_M, IVF_SAMPLE, IVF_ITERS, IVF_B = 8192, 16, 262_144, 10, 256
 IVF_NPROBES, IVF_REF_NPROBE = (8, 16, 64), 16
+SEG_VARIANTS = (64, 32, 16, 8)
+# the serving front end (BASELINE config 5) on one card
+SERVE_B, KM_N, KM_K, CLI_STDIN_ROWS = 1024, 65_536, 256, 4
+BATCHER_BLOCKS = (1, 37, 256, 500)
 
 
 def card_line() -> str:
@@ -129,18 +157,18 @@ def main_path_kernel_args(idx, q_dev):
     return dec_args, cached_args
 
 
-def compare_kernel_to_twin(kernel, twin, args, norm, qs, tile_n) -> dict:
+def compare_kernel_to_twin(kernel, twin, args, norm, qs, tile_n,
+                           seg: int = 128) -> dict:
     """Run a kernel and its twin on the same arguments. Differences are
     allowed only in segments (and tiles) holding a row whose norm/qs lies
     within 1e-4 of a half-integer, and a segment minimum may move by at
     most seg; anything else raises."""
-    from cvt_tpu_torch.ops.kernels.adc_scan import SEG
     r = norm.double() / float(qs)
     near_half = torch.nonzero((r - torch.floor(r) - 0.5).abs() < 1e-4)[:, 0]
     got = kernel(*args)
     want = twin(*args)
     max_err, n_diff = 0, 0
-    for a, b, rows in zip(got, want, (SEG, tile_n)):
+    for a, b, rows in zip(got, want, (seg, tile_n)):
         allowed = torch.zeros(a.shape[0], dtype=torch.bool, device=a.device)
         allowed[near_half // rows] = True
         diff = (a.long() - b.long()).abs()
@@ -150,7 +178,7 @@ def compare_kernel_to_twin(kernel, twin, args, norm, qs, tile_n) -> dict:
             raise AssertionError(f"{kernel.__name__}: kernel differs from "
                                  f"its twin outside near-half rows")
         max_err = max(max_err, int(diff.max()))
-    if int((got[0].long() - want[0].long()).abs().max()) > SEG:
+    if int((got[0].long() - want[0].long()).abs().max()) > seg:
         raise AssertionError(f"{kernel.__name__}: segpack off by > seg")
     return {"near_half_rows": int(near_half.numel()), "max_abs_err": max_err,
             "rows_differ": n_diff}
@@ -167,6 +195,21 @@ def compare_both(dec_args, cached_args, dec_norm) -> dict:
         "adc_segmin_cached": compare_kernel_to_twin(
             T.adc_segmin_cached, T.adc_segmin_cached_plain, cached_args,
             cached_args[3][:, 0], cached_args[1], cached_args[-1])}
+
+
+def compare_seg_variants(dec_args, dec_norm) -> dict:
+    """The decode kernel against its twin at each segment size below 128
+    (the sharded searcher and the server halve it on small shards), at
+    tiles 1,024 and 256, on random arguments whose last tile is partly
+    valid. Per seg, the worst of the two tiles."""
+    from cvt_tpu_torch.ops.kernels import adc_scan as T
+    out = {}
+    for seg in SEG_VARIANTS:
+        cmps = [compare_kernel_to_twin(
+            T.adc_segmin, T.adc_segmin_plain, dec_args[:6] + (tile_n, seg),
+            dec_norm, dec_args[1], tile_n, seg) for tile_n in (1024, 256)]
+        out[seg] = {key: max(c[key] for c in cmps) for key in cmps[0]}
+    return out
 
 
 def phase_main_path() -> dict:
@@ -266,6 +309,7 @@ def phase_main_path() -> dict:
     assert abs(res["parity_pt"]) <= 1.0, res["parity_pt"]
     res["_index"], res["_q"], res["_base"], res["_gt"] = (idx, q_dev,
                                                           base_dev, gt)
+    res["_ids_ref"] = ids_ref
     return res
 
 
@@ -436,11 +480,334 @@ def phase_ivf_timing(idx, q_dev, args, reps: int) -> dict:
     return out
 
 
+def phase_sq(base_dev, q_dev) -> dict:
+    """Step 8's main path (BASELINE config 1): the L2-normalised base and
+    queries, exact ground truth, ScalarQuantizer train / encode on the
+    card, FlatSQIndex search in bf16 and int8 modes and search_fast (the
+    decoded-cache kernel), all at B = 8,192, k = 10."""
+    from cvt_tpu_torch.index import FlatIndex, FlatSQIndex
+    from cvt_tpu_torch.ops.kernels import adc_scan as T
+    from cvt_tpu_torch.ops.linalg import l2_normalize
+    from cvt_tpu_torch.quant import ScalarQuantizer
+    from cvt_tpu_torch.utils import recall_at_k
+    res = {}
+    xb, xq = l2_normalize(base_dev), l2_normalize(q_dev)
+    exact_index = FlatIndex(D, "l2", chunk=131_072, device=DEV)
+    exact_index.add(xb)
+    gt = torch.cat([exact_index.search(xq[s:min(s + 512, N_REC)], 1)[1]
+                    for s in range(0, N_REC, 512)])[:, 0].cpu()
+    del exact_index
+
+    T.adc_segmin_cached.launches = 0
+    t0 = time.perf_counter()
+    sq = ScalarQuantizer.train(xb)
+    torch.cuda.synchronize()
+    res["train_s"] = time.perf_counter() - t0
+    sq.encode(xb[:65_536])                                    # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codes = sq.encode(xb)
+    torch.cuda.synchronize()
+    res["encode_codes_per_s"] = N_DB / (time.perf_counter() - t0)
+    idx = {}
+    for mode in ("bf16", "int8"):
+        idx[mode] = FlatSQIndex(sq, mode=mode)
+        idx[mode].add(codes=codes)
+    out = {mode: idx[mode].search(xq, K) for mode in idx}
+    out["fast"] = idx["bf16"].search_fast(xq, K)
+    torch.cuda.synchronize()
+    res["launches"] = T.adc_segmin_cached.launches
+
+    n = idx["bf16"].ntotal
+    for name, (d, i) in out.items():
+        assert i.shape == (N_QUERIES, K), name
+        assert int(i.min()) >= 0 and int(i.max()) < n, name
+        assert bool(torch.isfinite(d).all()), name
+        res[f"recall_at_1_{name}"] = recall_at_k(i[:N_REC], gt, k=1)
+        res[f"recall_at_10_{name}"] = recall_at_k(i[:N_REC], gt, k=10)
+    res["parity_pt"] = 100 * (res["recall_at_10_bf16"]
+                              - res["recall_at_10_fast"])
+    assert res["launches"] > 0, "the cached kernel never launched"
+    assert abs(res["parity_pt"]) <= 1.0, res["parity_pt"]
+    res["_index"], res["_xq"] = idx, xq
+    return res
+
+
+def sq_kernel_args(idx, xq):
+    """The cached kernel's arguments in FlatSQIndex.search_fast: the
+    bias-folded queries, the index's cache and norm column, its tile."""
+    from cvt_tpu_torch.ops.kernels import adc_scan as T
+    sq = idx.sq
+    q = xq - (sq.bias + 128.0 * sq.scale)[None, :]
+    vcap, _ = T._pack_caps(T.SEG, D)
+    q2s, qs = T._fold_queries(q, sq.scale, torch.amax(idx._norm_col), vcap)
+    return (q2s, qs, idx._dec8_t, idx._norm_col, idx.ntotal,
+            T.cached_tile_n(idx._dec8_t.shape[1]))
+
+
+def phase_sq_timing(idx, xq, args, reps: int) -> dict:
+    from cvt_tpu_torch.ops.kernels import adc_scan as T
+    out = {f"{mode}_ms": cuda_ms(lambda: idx[mode].search(xq, K), 2)
+           for mode in ("bf16", "int8")}
+    out["fast_ms"] = cuda_ms(lambda: idx["bf16"].search_fast(xq, K), reps)
+    out["kernel_ms"] = cuda_ms(lambda: T.adc_segmin_cached(*args), reps)
+    out["plain_ms"] = cuda_ms(lambda: T.adc_segmin_cached_plain(*args), 1)
+    return out
+
+
+def batched(fn, q, b: int):
+    """fn(batch, K) over q in batches of b -> (dists, ids) concatenated."""
+    outs = [fn(q[s:s + b], K) for s in range(0, q.shape[0], b)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def run_batcher(srv, q_host) -> dict:
+    """QueryBatcher over srv.serve: 8 threads submit blocks of 1, 37, 256
+    and 500 rows at once; every future must resolve to [rows, k] results
+    with ids in [0, n)."""
+    import threading
+    from cvt_tpu_torch.parallel import QueryBatcher
+    batcher = QueryBatcher(srv.serve, batch_size=SERVE_B, k=K,
+                           max_wait_ms=5.0)
+    futs, lock = [], threading.Lock()
+
+    def submit(t: int):
+        rows = BATCHER_BLOCKS[t % len(BATCHER_BLOCKS)]
+        f = batcher.submit(q_host[t * 200:t * 200 + rows])
+        with lock:
+            futs.append((rows, f))
+    threads = [threading.Thread(target=submit, args=(t,)) for t in range(8)]
+    t0 = time.perf_counter()
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        done = [(rows, f.result(timeout=120)) for rows, f in futs]
+    finally:
+        batcher.close()
+    wall = time.perf_counter() - t0
+    for rows, (d, i) in done:
+        assert d.shape == (rows, K) and i.shape == (rows, K), rows
+        assert (i >= 0).all() and (i < srv._n).all(), rows
+        assert np.isfinite(d).all(), rows
+    return {"futures": len(done), "rows": sum(r for r, _ in done),
+            "wall_s": wall}
+
+
+def run_cli(idx, q_host, tmp: str) -> dict:
+    """`python -m cvt_tpu_torch.cli serve` as a subprocess on a saved pack:
+    batch mode over the first N_REC queries (fvecs) and --stdin mode over
+    CLI_STDIN_ROWS JSON lines. Returns each mode's ids and wall time."""
+    from cvt_tpu_torch.io.vecs import write_fvecs
+    pack, qf = os.path.join(tmp, "pack.npz"), os.path.join(tmp, "q.fvecs")
+    idx.save(pack)
+    write_fvecs(qf, q_host[:N_REC])
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "cvt_tpu_torch.cli", "serve", "--index",
+           pack, "--k", str(K), "--batch", str(SERVE_B)]
+    stdin = "".join(json.dumps(row.tolist()) + "\n"
+                    for row in q_host[:CLI_STDIN_ROWS])
+    out = {}
+    for mode, extra, text in (("batch", ["--queries", qf], None),
+                              ("stdin", ["--stdin"], stdin)):
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd + extra, input=text, capture_output=True,
+                             text=True, cwd=root, timeout=300)
+        if run.returncode:
+            raise RuntimeError(f"cli serve ({mode}) exited "
+                               f"{run.returncode}: {run.stderr[-2000:]}")
+        out[f"{mode}_s"] = time.perf_counter() - t0
+        out[mode] = np.array([json.loads(line)["ids"]
+                              for line in run.stdout.splitlines()
+                              if line.startswith("{")])
+    return out
+
+
+def phase_serve(flat_idx, q_dev, gt, ids_ref) -> dict:
+    """Step 9's main path (BASELINE config 5's front end on one card): a
+    1-rank NCCL group and a 'db' mesh of 1; MultiHostADCServer over the
+    flat phase's OPQ and 1M codes with both merges, serve_pipelined,
+    ShardedADCSearcher(impl='kernel') and QueryBatcher, all through the
+    `adc_segmin` kernel."""
+    import torch.distributed as dist
+    from cvt_tpu_torch.ops.kernels import adc_scan as T
+    from cvt_tpu_torch.parallel import (MultiHostADCServer,
+                                        ShardedADCSearcher, init_distributed,
+                                        serving_mesh)
+    from cvt_tpu_torch.quant import OPQ
+    from cvt_tpu_torch.utils import recall_at_k
+    res = {}
+    t0 = time.perf_counter()
+    assert init_distributed() == 0
+    res["init_s"] = time.perf_counter() - t0
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    mesh = serving_mesh()
+    assert mesh.device_type == "cuda"
+    opq = OPQ(flat_idx.rotation, flat_idx.pq)
+    codes = flat_idx._codes
+    q = q_dev[:N_REC]
+
+    T.adc_segmin.launches = 0
+    srv, got = {}, {}
+    for merge in ("allgather", "ring"):
+        srv[merge] = MultiHostADCServer(opq, mesh, merge=merge)
+        srv[merge].load(codes=codes)
+        got[merge] = batched(srv[merge].serve, q, SERVE_B)
+    pipe = srv["ring"].serve_pipelined(q.reshape(-1, SERVE_B, D), K)
+    searcher = ShardedADCSearcher(opq, mesh, impl="kernel")
+    searcher.load(codes=codes)
+    got["searcher"] = batched(searcher.search, q, SERVE_B)
+    res["batcher"] = run_batcher(srv["allgather"], q.cpu().numpy())
+    torch.cuda.synchronize()
+    res["launches"] = T.adc_segmin.launches
+
+    ids = got["allgather"][1]
+    n = srv["allgather"]._n
+    assert ids.shape == (N_REC, K)
+    assert int(ids.min()) >= 0 and int(ids.max()) < n
+    assert bool(torch.isfinite(got["allgather"][0]).all())
+    for name in ("ring", "searcher"):
+        res[f"{name}_ids_equal"] = bool(torch.equal(got[name][1], ids))
+    res["pipelined_ids_equal"] = bool(torch.equal(pipe[1], got["ring"][1]))
+    res["pipelined_dists_equal"] = bool(torch.equal(pipe[0],
+                                                    got["ring"][0]))
+    res["recall_at_1_serve"] = recall_at_k(ids, gt, k=1)
+    res["recall_at_10_serve"] = recall_at_k(ids, gt, k=10)
+    res["recall_at_1_ref"] = recall_at_k(ids_ref, gt, k=1)
+    res["parity_pt"] = 100 * (res["recall_at_1_ref"]
+                              - res["recall_at_1_serve"])
+    assert res["launches"] > 0, "the adc_segmin kernel never launched"
+    for key in ("ring_ids_equal", "searcher_ids_equal",
+                "pipelined_ids_equal", "pipelined_dists_equal"):
+        assert res[key], key
+    assert abs(res["parity_pt"]) <= 1.0, res["parity_pt"]
+    res["_servers"], res["_ids"] = srv, ids.cpu().numpy()
+    return res
+
+
+def serve_kernel_args(srv, q):
+    """The `adc_segmin` arguments of srv.serve on one batch q (1 shard):
+    its rotated and folded queries, its shard, tile and segment."""
+    from cvt_tpu_torch.ops.kernels import adc_scan as T
+    from cvt_tpu_torch.parallel.sharded_search import _segment_plan
+    tile_n, seg = _segment_plan(srv._per, srv.tile_n, srv.seg, K)
+    q2s, qs = T._fold_queries(srv._rotate(q), srv._srow)
+    s2 = srv._srow * srv._srow
+    args = (q2s, qs, srv._codes_l, srv._cb_q, s2, min(srv._n, srv._per),
+            tile_n, seg)
+    norm = T._row_norms(T.decode_int8(srv._codes_l, srv._cb_q), s2)
+    return args, norm
+
+
+def phase_kmeans(base_dev) -> dict:
+    """sharded_kmeans_step over a 'dp' mesh of 1 (NCCL all_reduce) against
+    one step of the port's _lloyd on the same points and centroids."""
+    from cvt_tpu_torch.ops.kmeans import _lloyd, kmeans_assign
+    from cvt_tpu_torch.parallel import make_mesh, sharded_kmeans_step
+    x = base_dev[:KM_N]
+    c0 = x[:KM_K].clone()
+    c, obj = sharded_kmeans_step(make_mesh({"dp": 1}), x, c0)
+    want, _, _ = _lloyd(x, c0, KM_K, 1, None)
+    _, d0 = kmeans_assign(x, c0)
+    err = float((c - want).abs().max())
+    obj_rel = abs(float(obj) - float(d0.mean())) / float(d0.mean())
+    assert torch.allclose(c, want, rtol=1e-5, atol=1e-4), err
+    assert obj_rel <= 1e-5, obj_rel
+    return {"max_abs_err": err, "objective_rel_err": obj_rel}
+
+
 def print_compare(what: str, cmp: dict, stamp: str) -> None:
     for name, c in cmp.items():
         print(f"kernel vs twin, {what}: {name} max|diff| {c['max_abs_err']}"
               f", {c['rows_differ']} rows differ, {c['near_half_rows']} "
               f"rows within 1e-4 of a half-integer {stamp}")
+
+
+def run_sq(base_dev, q_dev, stamp: str) -> dict:
+    """Step 8: the SQ phase, its kernel-against-twin check and times."""
+    from cvt_tpu_torch.ops.kernels import adc_scan as T
+    sq = phase_sq(base_dev, q_dev)
+    idx, xq = sq.pop("_index"), sq.pop("_xq")
+    print(f"SQ (config 1, 1M x 128 L2-normalised): train {sq['train_s']:.3f}"
+          f" s, encode {sq['encode_codes_per_s']:.0f} codes/s {stamp}")
+    for name in ("bf16", "int8", "fast"):
+        print(f"SQ search {name}: recall@1 {sq[f'recall_at_1_{name}']:.4f} "
+              f"recall@10 {sq[f'recall_at_10_{name}']:.4f} {stamp}")
+    print(f"SQ parity (bf16 - search_fast recall@10): {sq['parity_pt']:.2f}"
+          f" pt (limit 1.0); launches during the SQ path: "
+          f"adc_segmin_cached {sq['launches']} {stamp}")
+    args = sq_kernel_args(idx["bf16"], xq)
+    sq["cmp"] = compare_kernel_to_twin(
+        T.adc_segmin_cached, T.adc_segmin_cached_plain, args,
+        args[3][:, 0], args[1], args[-1])
+    print_compare(f"SQ path's arguments, Npad={args[2].shape[1]} "
+                  f"B={N_QUERIES} tile {args[-1]}",
+                  {"adc_segmin_cached": sq["cmp"]}, stamp)
+    stm = phase_sq_timing(idx, xq, args, reps=5)
+    for name in ("bf16", "int8", "fast"):
+        ms = stm[f"{name}_ms"]
+        print(f"SQ search {name} 1M x 8192, k=10: {ms:.3f} ms/batch, "
+              f"{N_QUERIES / ms * 1e3:.0f} QPS {stamp}")
+    print(f"adc_segmin_cached at the SQ path: kernel {stm['kernel_ms']:.3f}"
+          f" ms, twin {stm['plain_ms']:.3f} ms {stamp}")
+    return sq
+
+
+def run_serving(flat_idx, q_dev, gt, ids_ref, base_dev, stamp: str) -> dict:
+    """Step 9: the serving phase, its kernel-against-twin check, sharded
+    k-means, the CLI and times; ends the process group."""
+    import tempfile
+    import torch.distributed as dist
+    from cvt_tpu_torch.ops.kernels import adc_scan as T
+    sv = phase_serve(flat_idx, q_dev, gt, ids_ref)
+    srv, ids = sv.pop("_servers"), sv.pop("_ids")
+    print(f"serving: 1-rank NCCL group up in {sv['init_s']:.2f} s; ring, "
+          f"ShardedADCSearcher and serve_pipelined ids equal serve's: "
+          f"{sv['ring_ids_equal']}, {sv['searcher_ids_equal']}, "
+          f"{sv['pipelined_ids_equal']} {stamp}")
+    print(f"serve recall@1 {sv['recall_at_1_serve']:.4f} recall@10 "
+          f"{sv['recall_at_10_serve']:.4f}; reference engine recall@1 "
+          f"{sv['recall_at_1_ref']:.4f}; parity {sv['parity_pt']:.2f} pt "
+          f"(limit 1.0) {stamp}")
+    b = sv["batcher"]
+    print(f"QueryBatcher: {b['futures']} futures from 8 threads "
+          f"({b['rows']} rows) resolved in {b['wall_s']:.3f} s {stamp}")
+    print(f"launches during the serving path: adc_segmin {sv['launches']} "
+          f"{stamp}")
+    args, norm = serve_kernel_args(srv["allgather"], q_dev[:SERVE_B])
+    sv["cmp"] = compare_kernel_to_twin(T.adc_segmin, T.adc_segmin_plain,
+                                       args, norm, args[1], args[-2],
+                                       args[-1])
+    print_compare(f"server's arguments, Npad={args[2].shape[0]} "
+                  f"B={SERVE_B} tile {args[-2]} seg {args[-1]}",
+                  {"adc_segmin": sv["cmp"]}, stamp)
+    km = phase_kmeans(base_dev)
+    print(f"sharded_kmeans_step ('dp' mesh of 1, {KM_N} x {D}, K {KM_K}) "
+          f"vs _lloyd: max|diff| {km['max_abs_err']:.3g}, objective rel "
+          f"{km['objective_rel_err']:.3g} {stamp}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = run_cli(flat_idx, q_dev.cpu().numpy(), tmp)
+    stdin_want = np.concatenate([
+        srv["allgather"].serve(q_dev[j:j + 1], K)[1].cpu().numpy()
+        for j in range(CLI_STDIN_ROWS)])
+    assert np.array_equal(cli["batch"], ids), "cli batch ids != serve"
+    assert np.array_equal(cli["stdin"], stdin_want), "cli stdin ids != serve"
+    print(f"cli serve: batch mode {cli['batch'].shape[0]} rows in "
+          f"{cli['batch_s']:.1f} s, --stdin {cli['stdin'].shape[0]} rows in "
+          f"{cli['stdin_s']:.1f} s (process wall clock); ids equal "
+          f"in-process serve {stamp}")
+    q = q_dev[:N_REC]
+    for merge in ("allgather", "ring"):
+        ms = cuda_ms(lambda: srv[merge].serve(q[:SERVE_B], K), 10)
+        print(f"serve ({merge}) 1M, B={SERVE_B}, k=10: {ms:.3f} ms/batch, "
+              f"{SERVE_B / ms * 1e3:.0f} QPS {stamp}")
+    ms = cuda_ms(lambda: srv["ring"].serve_pipelined(
+        q.reshape(-1, SERVE_B, D), K), 5) / (N_REC // SERVE_B)
+    print(f"serve_pipelined [{N_REC // SERVE_B}, {SERVE_B}]: {ms:.3f} "
+          f"ms/batch, {SERVE_B / ms * 1e3:.0f} QPS {stamp}")
+    dist.destroy_process_group()
+    return sv
 
 
 def main() -> int:
@@ -470,9 +837,17 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print("  " + line.strip())
 
+    rand_dec, rand_cached, rand_norm = random_kernel_args(65_536, 1024,
+                                                          65_536 - 1000)
     print_compare("random codes, Npad=65536 B=1024",
-                  compare_both(*random_kernel_args(65_536, 1024,
-                                                   65_536 - 1000)), stamp)
+                  compare_both(rand_dec, rand_cached, rand_norm), stamp)
+    segv = compare_seg_variants(rand_dec, rand_norm)
+    for seg, c in segv.items():
+        print(f"kernel vs twin, random codes, Npad=65536 B=1024 n_valid "
+              f"{65_536 - 1000}, seg {seg} (tiles 1024 and 256): adc_segmin "
+              f"max|diff| {c['max_abs_err']}, {c['rows_differ']} rows "
+              f"differ, {c['near_half_rows']} rows within 1e-4 of a "
+              f"half-integer {stamp}")
 
     ivf_rand = compare_ivf_kernel(random_ivf_args(D, 200))
     print(f"kernel vs twin, random inputs, S=48 pages B=200 (Bpad 256): "
@@ -481,6 +856,7 @@ def main() -> int:
     res = phase_main_path()
     idx, q_dev = res.pop("_index"), res.pop("_q")
     base_dev, gt = res.pop("_base"), res.pop("_gt")
+    ids_ref = res.pop("_ids_ref")
     print(f"main path: data {res['data_s']:.1f} s, OPQ train "
           f"{res['opq_train_s']:.1f} s {stamp}")
     print(f"encode: {res['encode_codes_per_s']:.0f} codes/s {stamp}")
@@ -544,18 +920,33 @@ def main() -> int:
           f"{itm['ivf_page_ms']:.3f} ms, twin {itm['ivf_page_plain_ms']:.3f}"
           f" ms {stamp}")
 
+    sq = run_sq(base_dev, q_dev, stamp)
+    sv = run_serving(idx, q_dev, gt, ids_ref, base_dev, stamp)
+
+    seg_err = {str(s): c["max_abs_err"] for s, c in segv.items()}
     kernels = [
-        {"name": name, "route": "cuda", "source": KERNEL_SRC,
-         "replaces": f"cvt_tpu/ops/pallas/adc_scan.py:{line}",
-         "launches": res["launches"][name],
-         "max_abs_err": cmp[name]["max_abs_err"], "ms": tm[name + "_ms"],
-         "plain_ms": tm[name + "_plain_ms"]}
-        for name, line in (("adc_segmin", 76), ("adc_segmin_cached", 448))]
-    kernels.append({
-        "name": "ivf_page", "route": "cuda", "source": IVF_SRC,
-        "replaces": "cvt_tpu/ops/pallas/ivf_scan.py:82",
-        "launches": iv["launches"], "max_abs_err": ivf_cmp["max_abs_err"],
-        "ms": itm["ivf_page_ms"], "plain_ms": itm["ivf_page_plain_ms"]})
+        {"name": "adc_segmin", "route": "cuda", "source": KERNEL_SRC,
+         "replaces": "cvt_tpu/ops/pallas/adc_scan.py:76",
+         "launches": res["launches"]["adc_segmin"] + sv["launches"],
+         "launches_by_path": {"flat": res["launches"]["adc_segmin"],
+                              "serve": sv["launches"]},
+         "max_abs_err": max(cmp["adc_segmin"]["max_abs_err"],
+                            sv["cmp"]["max_abs_err"], *seg_err.values()),
+         "seg_variants_max_abs_err": seg_err,
+         "ms": tm["adc_segmin_ms"], "plain_ms": tm["adc_segmin_plain_ms"]},
+        {"name": "adc_segmin_cached", "route": "cuda", "source": KERNEL_SRC,
+         "replaces": "cvt_tpu/ops/pallas/adc_scan.py:448",
+         "launches": res["launches"]["adc_segmin_cached"] + sq["launches"],
+         "launches_by_path": {"flat": res["launches"]["adc_segmin_cached"],
+                              "sq": sq["launches"]},
+         "max_abs_err": max(cmp["adc_segmin_cached"]["max_abs_err"],
+                            sq["cmp"]["max_abs_err"]),
+         "ms": tm["adc_segmin_cached_ms"],
+         "plain_ms": tm["adc_segmin_cached_plain_ms"]},
+        {"name": "ivf_page", "route": "cuda", "source": IVF_SRC,
+         "replaces": "cvt_tpu/ops/pallas/ivf_scan.py:82",
+         "launches": iv["launches"], "max_abs_err": ivf_cmp["max_abs_err"],
+         "ms": itm["ivf_page_ms"], "plain_ms": itm["ivf_page_plain_ms"]}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,11 +14,15 @@ Subpackages:
   ops       normalize, pairwise distances, stable top-k, k-means;
             ops/kernels the flat ADC and IVF page scan kernels and
             their twins
-  quant     ProductQuantizer, OPQ
-  index     FlatIndex (exact), FlatADCIndex (PQ/OPQ codes),
-            IVFADCIndex (inverted lists of residual PQ codes)
+  quant     ScalarQuantizer (int8 SQ), ProductQuantizer, OPQ, PCA
+  index     FlatIndex (exact), FlatSQIndex (int8 SQ codes),
+            FlatADCIndex (PQ/OPQ codes), IVFADCIndex (inverted lists of
+            residual PQ codes)
+  parallel  device meshes, ShardedADCSearcher, MultiHostADCServer,
+            QueryBatcher, sharded k-means over torch.distributed
   utils     recall@k
   convert   numpy parameters of `cvt_tpu` objects -> the port's objects
+  cli       `python -m cvt_tpu_torch.cli serve ...`
 """
 
 __version__ = "0.1.0"

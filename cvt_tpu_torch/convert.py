@@ -12,9 +12,12 @@ import numpy as np
 import torch
 
 from cvt_tpu_torch.index.flat_adc import FlatADCIndex
+from cvt_tpu_torch.index.flat_sq import FlatSQIndex
 from cvt_tpu_torch.index.ivf_adc import IVFADCIndex
 from cvt_tpu_torch.quant.opq import OPQ
+from cvt_tpu_torch.quant.pca import PCA
 from cvt_tpu_torch.quant.pq import ProductQuantizer
+from cvt_tpu_torch.quant.sq import ScalarQuantizer
 
 
 def pq_from_numpy(codebooks, device=None) -> ProductQuantizer:
@@ -55,4 +58,42 @@ def ivf_adc_from_numpy(centroids, codebooks, bucket_cap=None,
     idx.centroids = torch.as_tensor(np.array(centroids, np.float32),
                                     device=idx.device)
     idx.pq = pq_from_numpy(cb, idx.device)
+    return idx
+
+
+def sq_from_numpy(vmin, vdiff, rounding: str = "truncate",
+                  device=None) -> ScalarQuantizer:
+    """vmin, vdiff [D] -> ScalarQuantizer."""
+    return ScalarQuantizer(np.array(vmin, np.float32),
+                           np.array(vdiff, np.float32), rounding,
+                           device=device)
+
+
+def pca_from_numpy(mean, components, eigenvalues, whiten: bool = False,
+                   device=None) -> PCA:
+    """mean [D], components [out_dim, D], eigenvalues [out_dim] -> PCA."""
+    return PCA(np.array(mean, np.float32), np.array(components, np.float32),
+               np.array(eigenvalues, np.float32), whiten, device=device)
+
+
+def flat_sq_from_numpy(codes_s8, term3, vmin, vdiff,
+                       rounding: str = "truncate", mode: str = "bf16",
+                       dec8_t=None, norm_col=None,
+                       device=None) -> FlatSQIndex:
+    """A `cvt_tpu` FlatSQIndex's arrays -> the port's FlatSQIndex. With
+    the decoded cache of its search_fast (dec8_t [D, Npad] int8, norm_col
+    [Npad, 1] f32) the port scans those arrays instead of building its
+    own."""
+    idx = FlatSQIndex(sq_from_numpy(vmin, vdiff, rounding, device),
+                      mode=mode)
+    idx._codes_s8 = torch.as_tensor(np.array(codes_s8, np.int8),
+                                    device=idx.device)
+    idx._term3 = torch.as_tensor(np.array(term3, np.float32),
+                                 device=idx.device)
+    if dec8_t is not None:
+        idx._dec8_t = torch.as_tensor(np.array(dec8_t, np.int8),
+                                      device=idx.device)
+        idx._norm_col = torch.as_tensor(np.array(norm_col, np.float32),
+                                        device=idx.device)
+        idx._dec8_n = idx.ntotal
     return idx

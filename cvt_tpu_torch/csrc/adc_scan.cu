@@ -12,7 +12,7 @@
 //   ip        = <dec_r, q2s_b>               exact int32 (dp4a)
 //   norm_i    = clip(rint(norm_r / qs), 0, vcap), or ibase for r >= n_valid
 //   key       = ip * SEG + norm_i * SEG + (r % SEG)
-// and emit min(key) over each 128-row segment (segpack [Npad/128, Bpad]),
+// and emit min(key) over each SEG-row segment (segpack [Npad/SEG, Bpad]),
 // plus each tile's two best keys and their rows-in-tile (tiletop
 // [n_tiles, 8, Bpad], rows 4-7 zero). The bounds of _pack_caps keep every
 // key inside int32, so the signed arithmetic below never overflows.
@@ -24,15 +24,24 @@
 // tensor-core rate), so this simple design is compute-bound far from the
 // card's peak.
 //
-// What the simple design does about it: one block owns one 128-row
-// segment for the whole query batch, so each row is decoded once (the
-// codebooks staged in shared memory, rows decoded by a shared-memory
-// gather) and reused across all query sub-tiles; each thread holds an
-// 8x8 register tile of int32 accumulators fed by dp4a from padded
-// (bank-conflict-free) shared-memory tiles; the segment minimum is reduced
-// in registers, by one warp shuffle, and through shared memory, so only
-// segpack is written. Tensor-core (mma/wgmma) scoring, TMA and persistent
-// blocks are later work.
+// What the simple design does about it: one block owns 128 rows for the
+// whole query batch, so each row is decoded once (the codebooks staged in
+// shared memory, rows decoded by a shared-memory gather) and reused across
+// all query sub-tiles; each thread holds an 8x8 register tile of int32
+// accumulators fed by dp4a from padded (bank-conflict-free) shared-memory
+// tiles; the segment minima are reduced in registers, by one warp shuffle,
+// and through shared memory, so only segpack is written. Tensor-core
+// (mma/wgmma) scoring, TMA and persistent blocks are later work.
+//
+// Segment sizes. SEG in {128, 64, 32, 16, 8} is a template parameter: a
+// block holds 128 / SEG segments. A thread's rows ty + 16 i (ty < 16,
+// i < 8) fall into segment (16 i) / SEG when SEG >= 16, the same for every
+// thread, and into segment 2 i + ty / 8 at SEG = 8, where the two rows of
+// a shuffle pair (ty = 2w, 2w + 1 in warp w) still share one. Each thread
+// keeps one minimum per (query, slot), combines the pair by one shuffle,
+// and the block combines the warps that cover a segment in shared memory.
+// Integer minima are exact in any order, so SEG = 128 gives the bits of
+// the one-segment-per-block design it replaces.
 //
 // Exactness rules: norm / qs is IEEE division (__fdiv_rn) and rintf rounds
 // half to even like jnp.round; the float32 norm is summed in one fixed
@@ -43,19 +52,26 @@
 
 namespace {
 
-constexpr int SEG = 128;      // rows per block = one packed segment
+constexpr int ROWS = 128;     // rows per block
 constexpr int QT = 128;       // queries per sub-tile
 constexpr int THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
 constexpr int WARPS = THREADS / 32;
 constexpr int IMAX = 2147000000;
 
+// Minima a thread keeps per query: one per segment of the block at
+// SEG >= 16, one per row (i) at SEG = 8.
+template <int SEG>
+__host__ __device__ constexpr int slots() { return SEG >= 16 ? ROWS / SEG : 8; }
+
 // Shared-memory words for one block: decoded rows, query tile (both with
 // a one-word pad per row), key base column, per-warp partial minima.
-__host__ __device__ inline size_t score_smem_bytes(int d) {
+__host__ __device__ inline size_t score_smem_bytes(int d, int n_slots) {
   const int ldw = d / 4 + 1;
-  return sizeof(int) * ((size_t)(SEG + QT) * ldw + SEG + WARPS * QT);
+  return sizeof(int) *
+         ((size_t)(ROWS + QT) * ldw + ROWS + (size_t)WARPS * n_slots * QT);
 }
 
+template <int SEG>
 __device__ __forceinline__ int key_base(float norm, float qs, bool valid,
                                         int vcap, int ibase, int lane) {
   float x = rintf(__fdiv_rn(norm, qs));
@@ -93,14 +109,18 @@ __device__ __forceinline__ float row_norm(const int8_t* row,
   return __fadd_rn(v[0], v[1]);
 }
 
-// Scores the block's SEG decoded rows (dec_w, word rows of stride ldw)
-// against every query, writing one segment minimum per query into
-// segpack_row[0..bpad).
+// Scores the block's ROWS decoded rows (dec_w, word rows of stride ldw)
+// against every query, writing the block's ROWS / SEG segment minima per
+// query into segpack rows seg0 .. seg0 + ROWS / SEG.
+template <int SEG>
 __device__ void score_segment(const int* __restrict__ dec_w,
                               const int* __restrict__ col_s,
                               int* __restrict__ q_w, int* __restrict__ red_s,
                               const int8_t* __restrict__ q2s, int bpad,
-                              int dw, int32_t* __restrict__ segpack_row) {
+                              int dw, int32_t* __restrict__ segpack,
+                              size_t seg0) {
+  constexpr int SPB = ROWS / SEG;    // segments per block
+  constexpr int NS = slots<SEG>();
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int warp = tid >> 5, lane = tid & 31;
@@ -137,25 +157,43 @@ __device__ void score_segment(const int* __restrict__ dec_w,
 
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      int mn = INT32_MAX;
+      int mn[NS];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) mn = min(mn, acc[i][j] * SEG + col[i]);
-      // lanes l and l^16 hold rows ty and ty+1 of the same query
-      mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, 16));
-      if (lane < 16) red_s[warp * QT + tx + 16 * j] = mn;
+      for (int s = 0; s < NS; ++s) mn[s] = INT32_MAX;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int s = SEG >= 16 ? (16 * i) / SEG : i;
+        mn[s] = min(mn[s], acc[i][j] * SEG + col[i]);
+      }
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        // lanes l and l^16 hold rows ty and ty+1 of the same query
+        const int v = min(mn[s], __shfl_xor_sync(0xffffffffu, mn[s], 16));
+        if (lane < 16) red_s[(warp * NS + s) * QT + tx + 16 * j] = v;
+      }
     }
     __syncthreads();
-    if (tid < QT) {
-      int mn = red_s[tid];
+    for (int o = tid; o < SPB * QT; o += THREADS) {
+      const int s = o / QT, b = o - s * QT;
+      int mn = INT32_MAX;
+      if (SEG >= 16) {
 #pragma unroll
-      for (int w = 1; w < WARPS; ++w) mn = min(mn, red_s[w * QT + tid]);
-      segpack_row[q0 + tid] = mn;
+        for (int w = 0; w < WARPS; ++w) mn = min(mn, red_s[(w * NS + s) * QT + b]);
+      } else {
+        // segment 2 i + h: slot i of the warps whose rows have ty / 8 == h
+        const int h = s & 1, slot = s >> 1;
+#pragma unroll
+        for (int w = 4 * h; w < 4 * h + 4; ++w)
+          mn = min(mn, red_s[(w * NS + slot) * QT + b]);
+      }
+      segpack[(seg0 + s) * bpad + q0 + b] = mn;
     }
   }
 }
 
-// grid.x = Npad / SEG. Dynamic shared memory: score_smem_bytes(d) plus the
-// int8 codebooks [m, k_sub, ds].
+// grid.x = Npad / ROWS. Dynamic shared memory: score_smem_bytes(d, NS)
+// plus the int8 codebooks [m, k_sub, ds].
+template <int SEG>
 __global__ void __launch_bounds__(THREADS)
 adc_segmin_kernel(const uint8_t* __restrict__ codes,
                   const int8_t* __restrict__ cb_q,
@@ -166,13 +204,13 @@ adc_segmin_kernel(const uint8_t* __restrict__ codes,
   extern __shared__ int smem[];
   const int d = m * ds, dw = d / 4, ldw = dw + 1;
   int* dec_w = smem;
-  int* q_w = dec_w + SEG * ldw;
+  int* q_w = dec_w + ROWS * ldw;
   int* col_s = q_w + QT * ldw;
-  int* red_s = col_s + SEG;
-  int8_t* cb_s = reinterpret_cast<int8_t*>(red_s + WARPS * QT);
+  int* red_s = col_s + ROWS;
+  int8_t* cb_s = reinterpret_cast<int8_t*>(red_s + WARPS * slots<SEG>() * QT);
   int8_t* dec_b = reinterpret_cast<int8_t*>(dec_w);
   const int tid = threadIdx.x;
-  const size_t row0 = (size_t)blockIdx.x * SEG;
+  const size_t row0 = (size_t)blockIdx.x * ROWS;
 
   // stage the codebooks (k_sub * d bytes, d % 4 == 0)
   const int cb_words = k_sub * d / 4;
@@ -182,7 +220,7 @@ adc_segmin_kernel(const uint8_t* __restrict__ codes,
 
   // decode by shared-memory gather: one (row, subspace) pair per step;
   // a code past k_sub decodes to zeros, as a one-hot product would
-  for (int p = tid; p < SEG * m; p += THREADS) {
+  for (int p = tid; p < ROWS * m; p += THREADS) {
     const int r = p / m, mm = p - r * m;
     const int code = codes[(row0 + r) * m + mm];
     int8_t* dst = dec_b + r * ldw * 4 + mm * ds;
@@ -191,16 +229,19 @@ adc_segmin_kernel(const uint8_t* __restrict__ codes,
   }
   __syncthreads();
 
-  if (tid < SEG) {
-    col_s[tid] = key_base(row_norm(dec_b + tid * ldw * 4, s2, d), *qs,
-                          row0 + tid < (size_t)n_valid, vcap, ibase, tid);
+  // row0 is a multiple of ROWS, so tid % SEG is the row's lane
+  if (tid < ROWS) {
+    col_s[tid] = key_base<SEG>(row_norm(dec_b + tid * ldw * 4, s2, d), *qs,
+                               row0 + tid < (size_t)n_valid, vcap, ibase,
+                               tid & (SEG - 1));
   }
   __syncthreads();
-  score_segment(dec_w, col_s, q_w, red_s, q2s, bpad, dw,
-                segpack + (size_t)blockIdx.x * bpad);
+  score_segment<SEG>(dec_w, col_s, q_w, red_s, q2s, bpad, dw, segpack,
+                     (size_t)blockIdx.x * (ROWS / SEG));
 }
 
-// grid.x = Npad / SEG; dec8_t [d, npad] int8, norm_col [npad] f32.
+// grid.x = Npad / ROWS; dec8_t [d, npad] int8, norm_col [npad] f32.
+template <int SEG>
 __global__ void __launch_bounds__(THREADS)
 adc_segmin_cached_kernel(const int8_t* __restrict__ dec8_t,
                          const float* __restrict__ norm_col,
@@ -211,32 +252,36 @@ adc_segmin_cached_kernel(const int8_t* __restrict__ dec8_t,
   extern __shared__ int smem[];
   const int dw = d / 4, ldw = dw + 1;
   int* dec_w = smem;
-  int* q_w = dec_w + SEG * ldw;
+  int* q_w = dec_w + ROWS * ldw;
   int* col_s = q_w + QT * ldw;
-  int* red_s = col_s + SEG;
+  int* red_s = col_s + ROWS;
   int8_t* dec_b = reinterpret_cast<int8_t*>(dec_w);
   const int tid = threadIdx.x;
-  const size_t row0 = (size_t)blockIdx.x * SEG;
+  const size_t row0 = (size_t)blockIdx.x * ROWS;
 
-  // transpose the [d, SEG] cache block into rows (coalesced along rows)
-  for (int p = tid; p < d * SEG; p += THREADS) {
-    const int j = p / SEG, r = p - j * SEG;
+  // transpose the [d, ROWS] cache block into rows (coalesced along rows)
+  for (int p = tid; p < d * ROWS; p += THREADS) {
+    const int j = p / ROWS, r = p - j * ROWS;
     dec_b[r * ldw * 4 + j] = dec8_t[(size_t)j * npad + row0 + r];
   }
-  if (tid < SEG)
-    col_s[tid] = key_base(norm_col[row0 + tid], *qs,
-                          row0 + tid < (size_t)n_valid, vcap, ibase, tid);
+  if (tid < ROWS)
+    col_s[tid] = key_base<SEG>(norm_col[row0 + tid], *qs,
+                               row0 + tid < (size_t)n_valid, vcap, ibase,
+                               tid & (SEG - 1));
   __syncthreads();
-  score_segment(dec_w, col_s, q_w, red_s, q2s, bpad, dw,
-                segpack + (size_t)blockIdx.x * bpad);
+  score_segment<SEG>(dec_w, col_s, q_w, red_s, q2s, bpad, dw, segpack,
+                     (size_t)blockIdx.x * (ROWS / SEG));
 }
 
 // grid (n_tiles, bpad / 128), 128 threads: one (tile, query) per thread.
 // Same selection as the TPU kernel: m1 = best key, r1 its first segment;
 // m2 = best key once every segment equal to m1 is masked to IMAX, r2 the
-// first segment holding m2 after masking.
+// first segment holding m2 after masking. Rows-in-tile are r * seg plus
+// the key's lane, key & (seg - 1) (seg a power of two: exact for negative
+// keys in two's complement).
 __global__ void tiletop_kernel(const int32_t* __restrict__ segpack, int spt,
-                               int bpad, int32_t* __restrict__ tiletop) {
+                               int seg, int bpad,
+                               int32_t* __restrict__ tiletop) {
   const int b = blockIdx.y * blockDim.x + threadIdx.x;
   const int32_t* col = segpack + (size_t)blockIdx.x * spt * bpad + b;
   int m1 = INT32_MAX;
@@ -255,15 +300,52 @@ __global__ void tiletop_kernel(const int32_t* __restrict__ segpack, int spt,
   int32_t* out = tiletop + (size_t)blockIdx.x * 8 * bpad + b;
   out[0] = m1;
   out[(size_t)bpad] = m2;
-  out[(size_t)2 * bpad] = r1 * SEG + (m1 & (SEG - 1));
-  out[(size_t)3 * bpad] = r2 * SEG + (m2 & (SEG - 1));
+  out[(size_t)2 * bpad] = r1 * seg + (m1 & (seg - 1));
+  out[(size_t)3 * bpad] = r2 * seg + (m2 & (seg - 1));
   for (int r = 4; r < 8; ++r) out[(size_t)r * bpad] = 0;
 }
 
 int launch_tiletop(const int32_t* segpack, int npad, int bpad, int tile_n,
-                   int32_t* tiletop, cudaStream_t st) {
+                   int seg, int32_t* tiletop, cudaStream_t st) {
   dim3 grid(npad / tile_n, bpad / 128);
-  tiletop_kernel<<<grid, 128, 0, st>>>(segpack, tile_n / SEG, bpad, tiletop);
+  tiletop_kernel<<<grid, 128, 0, st>>>(segpack, tile_n / seg, seg, bpad,
+                                       tiletop);
+  return (int)cudaGetLastError();
+}
+
+template <int SEG>
+int launch_segmin(const void* codes, const void* cb_q, const void* q2s,
+                  const void* s2, const void* qs, int npad, int m, int k_sub,
+                  int ds, int bpad, int n_valid, int vcap, int ibase,
+                  void* segpack, cudaStream_t st) {
+  const int d = m * ds;
+  const size_t smem = score_smem_bytes(d, slots<SEG>()) + (size_t)k_sub * d;
+  cudaError_t e = cudaFuncSetAttribute(
+      adc_segmin_kernel<SEG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  adc_segmin_kernel<SEG><<<npad / ROWS, THREADS, smem, st>>>(
+      static_cast<const uint8_t*>(codes), static_cast<const int8_t*>(cb_q),
+      static_cast<const int8_t*>(q2s), static_cast<const float*>(s2),
+      static_cast<const float*>(qs), m, k_sub, ds, bpad, n_valid, vcap,
+      ibase, static_cast<int32_t*>(segpack));
+  return (int)cudaGetLastError();
+}
+
+template <int SEG>
+int launch_segmin_cached(const void* dec8_t, const void* norm_col,
+                         const void* q2s, const void* qs, int npad, int d,
+                         int bpad, int n_valid, int vcap, int ibase,
+                         void* segpack, cudaStream_t st) {
+  const size_t smem = score_smem_bytes(d, slots<SEG>());
+  cudaError_t e = cudaFuncSetAttribute(
+      adc_segmin_cached_kernel<SEG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  adc_segmin_cached_kernel<SEG><<<npad / ROWS, THREADS, smem, st>>>(
+      static_cast<const int8_t*>(dec8_t), static_cast<const float*>(norm_col),
+      static_cast<const int8_t*>(q2s), static_cast<const float*>(qs), npad, d,
+      bpad, n_valid, vcap, ibase, static_cast<int32_t*>(segpack));
   return (int)cudaGetLastError();
 }
 
@@ -272,50 +354,53 @@ int launch_tiletop(const int32_t* segpack, int npad, int bpad, int tile_n,
 extern "C" {
 
 // Shapes are validated by the Python wrapper (Bpad % 128 == 0, D % 4 == 0,
-// tile_n % 128 == 0, Npad % tile_n == 0, contiguous 4-byte-aligned
-// tensors). Returns 0 or the cudaError_t of the failed call.
+// seg in {128, 64, 32, 16, 8}, tile_n % seg == 0, Npad % tile_n == 0,
+// Npad % 128 == 0, contiguous 4-byte-aligned tensors). Returns 0 or the
+// cudaError_t of the failed call.
 int cvt_adc_segmin(const void* codes, const void* cb_q, const void* q2s,
                    const void* s2, const void* qs, int npad, int m,
                    int k_sub, int ds, int bpad, int n_valid, int tile_n,
-                   int vcap, int ibase, void* segpack, void* tiletop,
-                   void* stream) {
+                   int seg, int vcap, int ibase, void* segpack,
+                   void* tiletop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int d = m * ds;
-  const size_t smem = score_smem_bytes(d) + (size_t)k_sub * d;
-  cudaError_t e = cudaFuncSetAttribute(
-      adc_segmin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  adc_segmin_kernel<<<npad / SEG, THREADS, smem, st>>>(
-      static_cast<const uint8_t*>(codes), static_cast<const int8_t*>(cb_q),
-      static_cast<const int8_t*>(q2s), static_cast<const float*>(s2),
-      static_cast<const float*>(qs), m, k_sub, ds, bpad, n_valid, vcap,
-      ibase, static_cast<int32_t*>(segpack));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  int e;
+  switch (seg) {
+#define CVT_SEGMIN(S)                                                       \
+  case S:                                                                   \
+    e = launch_segmin<S>(codes, cb_q, q2s, s2, qs, npad, m, k_sub, ds, bpad, \
+                         n_valid, vcap, ibase, segpack, st);                \
+    break;
+    CVT_SEGMIN(128) CVT_SEGMIN(64) CVT_SEGMIN(32) CVT_SEGMIN(16) CVT_SEGMIN(8)
+#undef CVT_SEGMIN
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (e != 0) return e;
   return launch_tiletop(static_cast<const int32_t*>(segpack), npad, bpad,
-                        tile_n, static_cast<int32_t*>(tiletop), st);
+                        tile_n, seg, static_cast<int32_t*>(tiletop), st);
 }
 
 int cvt_adc_segmin_cached(const void* dec8_t, const void* norm_col,
                           const void* q2s, const void* qs, int npad, int d,
-                          int bpad, int n_valid, int tile_n, int vcap,
-                          int ibase, void* segpack, void* tiletop,
+                          int bpad, int n_valid, int tile_n, int seg,
+                          int vcap, int ibase, void* segpack, void* tiletop,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = score_smem_bytes(d);
-  cudaError_t e = cudaFuncSetAttribute(
-      adc_segmin_cached_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  adc_segmin_cached_kernel<<<npad / SEG, THREADS, smem, st>>>(
-      static_cast<const int8_t*>(dec8_t), static_cast<const float*>(norm_col),
-      static_cast<const int8_t*>(q2s), static_cast<const float*>(qs), npad, d,
-      bpad, n_valid, vcap, ibase, static_cast<int32_t*>(segpack));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  int e;
+  switch (seg) {
+#define CVT_CACHED(S)                                                      \
+  case S:                                                                  \
+    e = launch_segmin_cached<S>(dec8_t, norm_col, q2s, qs, npad, d, bpad,  \
+                                n_valid, vcap, ibase, segpack, st);        \
+    break;
+    CVT_CACHED(128) CVT_CACHED(64) CVT_CACHED(32) CVT_CACHED(16) CVT_CACHED(8)
+#undef CVT_CACHED
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (e != 0) return e;
   return launch_tiletop(static_cast<const int32_t*>(segpack), npad, bpad,
-                        tile_n, static_cast<int32_t*>(tiletop), st);
+                        tile_n, seg, static_cast<int32_t*>(tiletop), st);
 }
 
 const char* cvt_error_string(int code) {

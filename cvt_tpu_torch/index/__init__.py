@@ -1,8 +1,9 @@
-"""Search engines: exact flat scan, flat ADC over PQ/OPQ codes, and
-IVF-ADC (inverted lists of residual PQ codes)."""
+"""Search engines: exact flat scan, int8 SQ scan, flat ADC over PQ/OPQ
+codes, and IVF-ADC (inverted lists of residual PQ codes)."""
 
 from cvt_tpu_torch.index.flat import FlatIndex
+from cvt_tpu_torch.index.flat_sq import FlatSQIndex
 from cvt_tpu_torch.index.flat_adc import FlatADCIndex
 from cvt_tpu_torch.index.ivf_adc import IVFADCIndex
 
-__all__ = ["FlatIndex", "FlatADCIndex", "IVFADCIndex"]
+__all__ = ["FlatIndex", "FlatSQIndex", "FlatADCIndex", "IVFADCIndex"]

@@ -30,11 +30,11 @@ _I = ctypes.c_int
 # pointer as a 32-bit int
 _SIGNATURES = {
     # codes, cb_q, q2s, s2, qs, npad, m, k_sub, ds, bpad, n_valid,
-    # tile_n, vcap, ibase, segpack, tiletop, stream
-    "cvt_adc_segmin": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P, _P, _P],
-    # dec8_t, norm_col, q2s, qs, npad, d, bpad, n_valid, tile_n, vcap,
-    # ibase, segpack, tiletop, stream
-    "cvt_adc_segmin_cached": [_P, _P, _P, _P] + [_I] * 7 + [_P, _P, _P],
+    # tile_n, seg, vcap, ibase, segpack, tiletop, stream
+    "cvt_adc_segmin": [_P, _P, _P, _P, _P] + [_I] * 10 + [_P, _P, _P],
+    # dec8_t, norm_col, q2s, qs, npad, d, bpad, n_valid, tile_n, seg,
+    # vcap, ibase, segpack, tiletop, stream
+    "cvt_adc_segmin_cached": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P, _P],
     # sel, qs, dec8_t, nrm_col, cip, q2s, n_sel, n_rows, d, bpad, lp, seg,
     # marker, segpack, stream
     "cvt_ivf_pages_segmin": [_P] * 6 + [_I] * 7 + [_P, _P],

@@ -8,7 +8,8 @@ hand-written CUDA kernels (`csrc/adc_scan.cu`):
     query batch with exact int32 dot products, and emits packed keys
         key = ip * seg + norm_i * seg + lane
     (an exact lexicographic (score, row) key) reduced to one minimum per
-    128-row segment, plus each tile's best two keys;
+    `seg`-row segment (seg in {128, 64, 32, 16, 8}), plus each tile's best
+    two keys;
   * `adc_segmin_cached`: the same over a pre-decoded int8 cache.
 
 Each kernel has a plain PyTorch twin here (`*_plain`) computing the same
@@ -37,7 +38,8 @@ from cvt_tpu_torch.ops.topk import top_k_smallest
 
 BIG = 3.4e38            # finite +inf stand-in for padded result slots
 _IMAX = 2_147_000_000   # masks a tile's best key while finding its second
-SEG = 128               # rows per packed segment (one CUDA block's rows)
+SEG = 128               # default rows per packed segment (one CUDA block)
+SEGS = (128, 64, 32, 16, 8)     # segment sizes the kernels are built for
 
 
 def _pack_caps(seg: int, d: int) -> tuple[int, int]:
@@ -138,7 +140,7 @@ def _norm_column(norm: torch.Tensor, qs: torch.Tensor, row0: int,
     return norm_i * seg + rows % seg
 
 
-def _segmin_tiles(dec_tile, norm, q2s, qs, n_valid, tile_n, npad):
+def _segmin_tiles(dec_tile, norm, q2s, qs, n_valid, tile_n, npad, seg):
     """Shared body of both twins: tile by tile, packed keys -> segment
     minima and each tile's best two, never holding an [Npad, B] block.
 
@@ -148,7 +150,9 @@ def _segmin_tiles(dec_tile, norm, q2s, qs, n_valid, tile_n, npad):
     bpad, d = q2s.shape
     if d > 1040:
         raise ValueError(f"D={d} breaks the exact float32 score bound")
-    seg = SEG
+    if seg not in SEGS or tile_n % seg or npad % tile_n:
+        raise ValueError(f"seg {seg} must be one of {SEGS} dividing tile_n "
+                         f"{tile_n}, which must divide Npad {npad}")
     vcap, ibase = _pack_caps(seg, d)
     spt = tile_n // seg
     n_tiles = npad // tile_n
@@ -178,24 +182,25 @@ def _segmin_tiles(dec_tile, norm, q2s, qs, n_valid, tile_n, npad):
     return segpack, tiletop
 
 
-def adc_segmin_plain(q2s, qs, codes, cb_q, s2, n_valid: int, tile_n: int):
+def adc_segmin_plain(q2s, qs, codes, cb_q, s2, n_valid: int, tile_n: int,
+                     seg: int = SEG):
     """Plain PyTorch twin of the `adc_segmin` kernel (same arguments and
     outputs); runs on any device."""
     dec = decode_int8(codes, cb_q)                               # [Npad, D]
     norm = _row_norms(dec, s2)
     return _segmin_tiles(lambda r0: dec[r0:r0 + tile_n], norm, q2s, qs,
-                         n_valid, tile_n, codes.shape[0])
+                         n_valid, tile_n, codes.shape[0], seg)
 
 
 def adc_segmin_cached_plain(q2s, qs, dec8_t, norm_col, n_valid: int,
-                            tile_n: int):
+                            tile_n: int, seg: int = SEG):
     """Plain PyTorch twin of the `adc_segmin_cached` kernel."""
     return _segmin_tiles(lambda r0: dec8_t[:, r0:r0 + tile_n].T,
                          norm_col[:, 0], q2s, qs, n_valid, tile_n,
-                         dec8_t.shape[1])
+                         dec8_t.shape[1], seg)
 
 
-def _check_launch(q2s, qs, npad: int, tile_n: int, tensors: dict,
+def _check_launch(q2s, qs, npad: int, tile_n: int, seg: int, tensors: dict,
                   dtypes: dict) -> None:
     """Validate what the kernels take before their pointers are passed."""
     bpad, d = q2s.shape
@@ -212,20 +217,22 @@ def _check_launch(q2s, qs, npad: int, tile_n: int, tensors: dict,
     if bpad % 128 or d % 4:
         raise ValueError(f"q2s [{bpad}, {d}]: need Bpad % 128 == 0 and "
                          f"D % 4 == 0")
-    if tile_n % SEG or npad % tile_n:
-        raise ValueError(f"tile_n {tile_n} must be a multiple of {SEG} "
-                         f"dividing Npad {npad}")
+    if seg not in SEGS or tile_n % seg or npad % tile_n or npad % 128:
+        raise ValueError(f"seg {seg} must be one of {SEGS} dividing tile_n "
+                         f"{tile_n}, which must divide Npad {npad}, a "
+                         f"multiple of 128 (one CUDA block's rows)")
 
 
-def _outputs(npad: int, tile_n: int, bpad: int, dev):
+def _outputs(npad: int, tile_n: int, bpad: int, seg: int, dev):
     """Uninitialised (segpack, tiletop); the kernels write every entry."""
-    return (torch.empty((npad // SEG, bpad), dtype=torch.int32, device=dev),
+    return (torch.empty((npad // seg, bpad), dtype=torch.int32, device=dev),
             torch.empty((npad // tile_n, 8, bpad), dtype=torch.int32,
                         device=dev))
 
 
-def adc_segmin(q2s, qs, codes, cb_q, s2, n_valid: int, tile_n: int):
-    """Phase 1 with decode -> (segpack [Npad/128, Bpad] i32, tiletop
+def adc_segmin(q2s, qs, codes, cb_q, s2, n_valid: int, tile_n: int,
+               seg: int = SEG):
+    """Phase 1 with decode -> (segpack [Npad/seg, Bpad] i32, tiletop
     [n_tiles, 8, Bpad] i32).
 
     q2s [Bpad, D] int8 = quantize(-2 * q * srow) and qs [1] f32 its scale
@@ -238,25 +245,26 @@ def adc_segmin(q2s, qs, codes, cb_q, s2, n_valid: int, tile_n: int):
     """
     npad = codes.shape[0]
     if q2s.device.type == "cpu":
-        return adc_segmin_plain(q2s, qs, codes, cb_q, s2, n_valid, tile_n)
+        return adc_segmin_plain(q2s, qs, codes, cb_q, s2, n_valid, tile_n,
+                                seg)
     if q2s.device.type != "cuda":
         raise ValueError(f"no adc_segmin kernel for {q2s.device}")
     m, k_sub, ds = cb_q.shape
-    _check_launch(q2s, qs, npad, tile_n,
+    _check_launch(q2s, qs, npad, tile_n, seg,
                   dict(q2s=q2s, qs=qs, codes=codes, cb_q=cb_q, s2=s2),
                   dict(q2s=torch.int8, qs=torch.float32, codes=torch.uint8,
                        cb_q=torch.int8, s2=torch.float32))
     bpad, d = q2s.shape
     if codes.shape[1] != m or m * ds != d or s2.shape != (d,):
         raise ValueError("codes/cb_q/s2 shapes disagree with q2s")
-    vcap, ibase = _pack_caps(SEG, d)
+    vcap, ibase = _pack_caps(seg, d)
     lib = _build.load()
-    segpack, tiletop = _outputs(npad, tile_n, bpad, q2s.device)
+    segpack, tiletop = _outputs(npad, tile_n, bpad, seg, q2s.device)
     with torch.cuda.device(q2s.device):
         _build.check(lib, lib.cvt_adc_segmin(
             codes.data_ptr(), cb_q.data_ptr(), q2s.data_ptr(),
             s2.data_ptr(), qs.data_ptr(), npad, m, k_sub, ds, bpad, n_valid,
-            tile_n, vcap, ibase, segpack.data_ptr(), tiletop.data_ptr(),
+            tile_n, seg, vcap, ibase, segpack.data_ptr(), tiletop.data_ptr(),
             torch.cuda.current_stream().cuda_stream), "adc_segmin")
     adc_segmin.launches += 1
     return segpack, tiletop
@@ -265,29 +273,30 @@ def adc_segmin(q2s, qs, codes, cb_q, s2, n_valid: int, tile_n: int):
 adc_segmin.launches = 0
 
 
-def adc_segmin_cached(q2s, qs, dec8_t, norm_col, n_valid: int, tile_n: int):
+def adc_segmin_cached(q2s, qs, dec8_t, norm_col, n_valid: int, tile_n: int,
+                      seg: int = SEG):
     """Phase 1 over the decoded cache -> (segpack, tiletop) as
     `adc_segmin`. dec8_t [D, Npad] int8; norm_col [Npad, 1] f32."""
     npad = dec8_t.shape[1]
     if q2s.device.type == "cpu":
         return adc_segmin_cached_plain(q2s, qs, dec8_t, norm_col, n_valid,
-                                       tile_n)
+                                       tile_n, seg)
     if q2s.device.type != "cuda":
         raise ValueError(f"no adc_segmin_cached kernel for {q2s.device}")
-    _check_launch(q2s, qs, npad, tile_n,
+    _check_launch(q2s, qs, npad, tile_n, seg,
                   dict(q2s=q2s, qs=qs, dec8_t=dec8_t, norm_col=norm_col),
                   dict(q2s=torch.int8, qs=torch.float32, dec8_t=torch.int8,
                        norm_col=torch.float32))
     bpad, d = q2s.shape
     if dec8_t.shape[0] != d or norm_col.shape != (npad, 1):
         raise ValueError("dec8_t/norm_col shapes disagree with q2s")
-    vcap, ibase = _pack_caps(SEG, d)
+    vcap, ibase = _pack_caps(seg, d)
     lib = _build.load()
-    segpack, tiletop = _outputs(npad, tile_n, bpad, q2s.device)
+    segpack, tiletop = _outputs(npad, tile_n, bpad, seg, q2s.device)
     with torch.cuda.device(q2s.device):
         _build.check(lib, lib.cvt_adc_segmin_cached(
             dec8_t.data_ptr(), norm_col.data_ptr(), q2s.data_ptr(),
-            qs.data_ptr(), npad, d, bpad, n_valid, tile_n, vcap, ibase,
+            qs.data_ptr(), npad, d, bpad, n_valid, tile_n, seg, vcap, ibase,
             segpack.data_ptr(), tiletop.data_ptr(),
             torch.cuda.current_stream().cuda_stream), "adc_segmin_cached")
     adc_segmin_cached.launches += 1

@@ -16,11 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from cvt_tpu_torch.index import FlatADCIndex, IVFADCIndex
+from cvt_tpu_torch.index import FlatADCIndex, FlatSQIndex, IVFADCIndex
 from cvt_tpu_torch.io import synthetic_sift
 from cvt_tpu_torch.ops.kernels import adc_scan as T
 from cvt_tpu_torch.ops.kernels import ivf_scan as V
-from cvt_tpu_torch.quant import ProductQuantizer
+from cvt_tpu_torch.ops.linalg import l2_normalize
+from cvt_tpu_torch.quant import ProductQuantizer, ScalarQuantizer
 
 pytestmark = pytest.mark.cuda
 
@@ -56,6 +57,36 @@ def test_segmin_kernel_equals_twin(card, tile_n, n_valid):
     assert torch.equal(tt, ptt)
 
 
+@pytest.mark.parametrize("seg", [64, 32, 16, 8])
+def test_segmin_kernel_equals_twin_at_each_seg(card, seg):
+    """The segment-size template against the twin, with the last tile
+    partly valid (n_valid inside a tile, not on a segment boundary)."""
+    q2s, qs, codes, cb_q, s2, _, _ = _inputs(card)
+    for tile_n in (1024, 256):
+        sp, tt = T.adc_segmin(q2s, qs, codes, cb_q, s2, 8192 - 300, tile_n,
+                              seg)
+        torch.cuda.synchronize()
+        assert sp.shape == (8192 // seg, 256)
+        psp, ptt = T.adc_segmin_plain(q2s, qs, codes, cb_q, s2, 8192 - 300,
+                                      tile_n, seg)
+        assert torch.equal(sp, psp)
+        assert torch.equal(tt, ptt)
+
+
+@pytest.mark.parametrize("seg", [128, 32, 8])
+def test_segmin_cached_kernel_equals_twin_at_seg(card, seg):
+    q2s, qs, codes, cb_q, s2, _, _ = _inputs(card)
+    dec = T.decode_int8(codes, cb_q)
+    dec8_t = dec.T.contiguous()
+    norm_col = T._row_norms(dec, s2)[:, None].contiguous()
+    sp, tt = T.adc_segmin_cached(q2s, qs, dec8_t, norm_col, 7000, 1024, seg)
+    torch.cuda.synchronize()
+    psp, ptt = T.adc_segmin_cached_plain(q2s, qs, dec8_t, norm_col, 7000,
+                                         1024, seg)
+    assert torch.equal(sp, psp)
+    assert torch.equal(tt, ptt)
+
+
 def test_segmin_cached_kernel_equals_twin(card):
     q2s, qs, codes, cb_q, s2, _, _ = _inputs(card)
     dec = T.decode_int8(codes, cb_q)
@@ -79,6 +110,10 @@ def test_wrappers_refuse_bad_inputs(card):
         T.adc_segmin(q2s, qs, codes.int(), cb_q, s2, 8192, 1024)
     with pytest.raises(ValueError):
         T.adc_segmin(q2s, qs, codes, cb_q, s2, 8192, 1000)
+    with pytest.raises(ValueError):
+        T.adc_segmin(q2s, qs, codes, cb_q, s2, 8192, 1024, 4)
+    with pytest.raises(ValueError):
+        T.adc_segmin(q2s, qs, codes[:8192 - 64], cb_q, s2, 8000, 64, 32)
 
 
 def test_index_on_card_equals_index_on_cpu(card):
@@ -151,10 +186,11 @@ def test_ivf_wrapper_refuses_bad_inputs(card):
         V.ivf_pages_segmin(q2s, qs, dec8_t, nrm, cip[:-16], sel, 512, 32)
 
 
-def _assert_ids_match(d, i, cd, ci, rel=1e-4):
-    """rtol 1e-5 on distances; an id may differ only where the CPU row
-    holds another distance within `rel` of it, or at the last slot."""
-    np.testing.assert_allclose(d, cd, rtol=1e-5)
+def _assert_ids_match(d, i, cd, ci, rel=1e-4, atol=0.0):
+    """rtol 1e-5 (plus `atol`) on distances; an id may differ only where
+    the CPU row holds another distance within `rel` of it, or at the last
+    slot."""
+    np.testing.assert_allclose(d, cd, rtol=1e-5, atol=atol)
     for r, c in zip(*np.nonzero(i != ci)):
         if c < ci.shape[1] - 1:
             gap = np.abs(np.delete(cd[r], c) - cd[r, c])
@@ -181,3 +217,94 @@ def test_ivf_index_on_card_equals_index_on_cpu(card):
         _assert_ids_match(got[0].cpu().numpy(), got[1].cpu().numpy(),
                           want[0].numpy(), want[1].numpy())
     assert V.ivf_pages_segmin.launches == before + 2
+
+
+def test_flat_sq_on_card_equals_cpu(card):
+    """FlatSQIndex on the card against the same index on the CPU. Codes
+    are elementwise float32 operations, so they agree bitwise. With the
+    CPU's decoded cache carried to the card, search_fast's ids agree
+    bitwise (the keys are exact integers); with the card's own cache the
+    norm column agrees to rtol 1e-6 (a float32 sum in another order) and
+    top-1 ids on >= 99% of queries. A distance is a query norm (~1, a
+    float32 sum in another order on each device) plus a score of nearly
+    its size, so its error is absolute: rtol 1e-5 plus atol 2e-6, a few
+    ulp of the norm. search (bf16, int8): the same on distances, ids
+    equal except at near-ties."""
+    base, queries = synthetic_sift(6000, 64, n_queries=128, seed=0)
+    xb = l2_normalize(torch.from_numpy(base))
+    xq = l2_normalize(torch.from_numpy(queries))
+    sq = ScalarQuantizer.train(xb)
+    cpu = FlatSQIndex(sq)
+    cpu.add(xb)
+    gpu = FlatSQIndex(sq, device=card)
+    gpu.add(xb.to(card))
+    assert torch.equal(gpu._codes_s8.cpu(), cpu._codes_s8)
+    want = cpu.search_fast(xq, 10)
+    before = T.adc_segmin_cached.launches
+    own = gpu.search_fast(xq, 10)
+    assert T.adc_segmin_cached.launches == before + 1
+    np.testing.assert_allclose(gpu._norm_col.cpu().numpy(),
+                               cpu._norm_col.numpy(), rtol=1e-6)
+    top1 = (own[1][:, 0].cpu() == want[1][:, 0]).float().mean()
+    assert float(top1) >= 0.99
+    gpu._dec8_t = cpu._dec8_t.to(card)
+    gpu._norm_col = cpu._norm_col.to(card)
+    got = gpu.search_fast(xq, 10)
+    assert torch.equal(got[1].cpu(), want[1])
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               rtol=1e-5, atol=2e-6)
+    for mode in ("bf16", "int8"):
+        cpu.mode = gpu.mode = mode
+        d, i = gpu.search(xq, 10)
+        cd, ci = cpu.search(xq, 10)
+        _assert_ids_match(d.cpu().numpy(), i.cpu().numpy(), cd.numpy(),
+                          ci.numpy(), atol=2e-6)
+
+
+def test_server_one_rank_nccl_equals_cpu(card):
+    """A 1-rank NCCL group on the card: MultiHostADCServer (allgather,
+    ring, pipelined) and ShardedADCSearcher(impl='kernel') against the
+    same shard scanned on the CPU by the twin. 1,000 rows at tile 128
+    leave 8 segments of 128 < k, so the segment falls to 64. ids
+    bitwise (the twin's norms are the kernel's), distances rtol 1e-5."""
+    import torch.distributed as dist
+    from cvt_tpu_torch.parallel import (MultiHostADCServer,
+                                        ShardedADCSearcher,
+                                        init_distributed, serving_mesh)
+    from cvt_tpu_torch.parallel.sharded_search import (_local_pallas_topk,
+                                                       _segment_plan)
+    _, _, _, _, _, cb, q = _inputs("cpu")
+    codes = torch.randint(0, 256, (1000, 8), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(3))
+    assert init_distributed() == 0
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = serving_mesh()
+        pq = ProductQuantizer(cb)
+        got = {}
+        for merge in ("allgather", "ring"):
+            srv = MultiHostADCServer(pq, mesh, merge=merge, tile_n=128)
+            srv.load(codes=codes)
+            got[merge] = srv.serve(q, 10)
+        pipe = srv.serve_pipelined(q[:192].reshape(2, 96, -1), 10)
+        searcher = ShardedADCSearcher(pq, mesh, impl="kernel", chunk=128,
+                                      tile_n=128)
+        searcher.load(codes=codes)
+        got["searcher"] = searcher.search(q, 10)
+        per = srv._per
+        tile_n, seg = _segment_plan(per, 128, 128, 10)
+        assert (per, tile_n, seg) == (1024, 128, 64)
+        cb_q, srow = T._quantize_codebooks(cb)
+        padded = torch.nn.functional.pad(codes, (0, 0, 0, per - 1000))
+        wd, wi = _local_pallas_topk(q, padded, cb_q, srow, 10, 1000, tile_n,
+                                    seg)
+        for d, i in got.values():
+            assert torch.equal(i.cpu(), wi)
+            np.testing.assert_allclose(d.cpu().numpy(), wd.numpy(),
+                                       rtol=1e-5)
+        # each micro-batch folds its own queries, as serve() on it does
+        parts = [srv.serve(q[96 * t:96 * (t + 1)], 10) for t in range(2)]
+        assert torch.equal(pipe[1], torch.cat([p[1] for p in parts]))
+        assert torch.equal(pipe[0], torch.cat([p[0] for p in parts]))
+    finally:
+        dist.destroy_process_group()
