@@ -4,7 +4,10 @@
 
 1. Card and kernels: refuses to run without CUDA; prints the card's name
    and power limit (nvidia-smi); pins float32 matrix products to full
-   precision; builds the CUDA kernels from csrc/ (timed).
+   precision; builds the CUDA kernels from csrc/ (timed) and prints each
+   kernel's registers and spills (ptxas) and, where the toolkit has
+   cuobjdump, the count of each scoring instruction class in its SASS
+   (IMMA / IGMMA: int8 tensor cores; IDP4A: dp4a on the CUDA cores).
 2. Kernel against twin on seeded random inputs: both ADC kernels and
    their plain PyTorch twins (Npad = 65,536, B = 1,024, D = 128, M = 8,
    K = 256), then the decode kernel at every smaller segment size
@@ -56,9 +59,18 @@
    `python -m cvt_tpu_torch.cli serve` as a subprocess on a saved pack
    (batch mode and --stdin), whose ids must equal the in-process serve.
    Times of serve with each merge and of serve_pipelined.
-10. One JSON line describing the three kernels (launches summed over the
-   paths that run each, max_abs_err the worst of its comparisons) and,
-   last, the device line.
+10. The split of each ADC call at the flat path's shape into its scan
+   kernel and `tiletop_kernel` (torch.profiler device time; last, since
+   the profiler's hooks slow the host side of what runs after it).
+   Each kernel's bound at each path's shape: the larger of the bytes it
+   must move (each input read once, each output written once) over 3.35
+   TB/s and its int8 operations (2 per multiply-add; IVF: live pages only)
+   over 1,979 TOP/s, the H100 SXM data sheet's rates; and its time's share
+   of that bound. One JSON line describing the three kernels (launches
+   summed over the paths that run each, max_abs_err the worst of its
+   comparisons, ms / bound at the flat path's shape for the ADC kernels,
+   every path under by_path; no one PyTorch call computes packed segment
+   minima, so library_ms is null) and, last, the device line.
 
 Every ADC kernel-against-twin check demands segpack and tiletop bitwise
 equal, except that a row whose norm/qs lies within 1e-4 of a half-integer
@@ -72,6 +84,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -92,6 +106,9 @@ SEG_VARIANTS = (64, 32, 16, 8)
 # the serving front end (BASELINE config 5) on one card
 SERVE_B, KM_N, KM_K, CLI_STDIN_ROWS = 1024, 65_536, 256, 4
 BATCHER_BLOCKS = (1, 37, 256, 500)
+# H100 SXM data sheet: dense int8 tensor-core rate, HBM3 bandwidth
+PEAK_INT8_OPS, HBM_BYTES_PER_S = 1.979e15, 3.35e12
+SASS_CLASSES = ("IMMA", "IGMMA", "IDP4A")
 
 
 def card_line() -> str:
@@ -115,6 +132,130 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time for the work: bytes over the memory rate or int8
+    operations over the int8 peak, whichever is larger, and which."""
+    t_ops = ops / PEAK_INT8_OPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def adc_bound(args, cached: bool) -> dict:
+    """Bound of one `adc_segmin` (cached=False) or `adc_segmin_cached`
+    call on its arguments: every padded row against every padded query,
+    the inputs read once, segpack and tiletop written once."""
+    q2s = args[0]
+    bpad, d = q2s.shape
+    n_in = 4 if cached else 5
+    npad = args[2].shape[1] if cached else args[2].shape[0]
+    tile_n = args[n_in + 1]
+    seg = args[n_in + 2] if len(args) > n_in + 2 else 128
+    out = 4 * bpad * (npad // seg + 8 * (npad // tile_n))
+    return bound(2.0 * npad * d * bpad, nbytes(*args[:n_in]) + out)
+
+
+def ivf_bound(args) -> dict:
+    """Bound of one `ivf_page` call, counting the live page slots only
+    (sel lists the probed pages in ascending order, then repeats page 0 in
+    its fill slots): their cache rows and norms, coarse terms and minima,
+    plus the queries."""
+    q2s, _, dec8_t, _, _, sel, lp, seg = args
+    bpad, d = q2s.shape
+    s = sel.cpu()
+    n_live = 1 + int((s[1:] > s[:-1]).sum())
+    mins = n_live * (lp // seg) * bpad * 4
+    return bound(2.0 * n_live * lp * d * bpad,
+                 n_live * lp * (d + 4) + 2 * mins + nbytes(q2s, sel))
+
+
+def share(ms: float, b: dict) -> dict:
+    return dict(b, ms=ms, bound_share=b["bound_ms"] / ms)
+
+
+def print_bound(name: str, shape: str, r: dict, stamp: str) -> None:
+    print(f"{name} at {shape}: {r['ms']:.3f} ms, bound {r['bound_ms']:.3f} "
+          f"ms ({r['bound_by']}: {r['ops']:.3e} int8 ops, "
+          f"{r['bytes'] / 1e6:.1f} MB), {r['bound_share']:.1%} of the "
+          f"bound {stamp}")
+
+
+def kernel_split(fn, reps: int) -> dict:
+    """Device ms per call of the scan kernel and of tiletop_kernel in one
+    ADC wrapper call (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {"scan_ms": 0.0, "tiletop_ms": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = "tiletop_ms" if "tiletop_kernel" in e.key else (
+            "scan_ms" if "adc_segmin" in e.key else None)
+        if key:
+            out[key] += e.self_device_time_total / 1e3 / reps
+    if not out["scan_ms"]:
+        raise RuntimeError("the profiler recorded no ADC scan kernel")
+    return out
+
+
+def kernel_name(mangled: str) -> str | None:
+    """'adc_segmin_kernel<128>' from a mangled kernel name, else None."""
+    m = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?", mangled)
+    if m is None:
+        return None
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: 'N registers, spill stores/loads'} from the build log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+        elif name and "spill" in line:
+            out[name] = line.strip()
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out[name] = f"{regs} registers, {out.get(name, '')}"
+    return out
+
+
+def sass_classes(lib: str) -> dict:
+    """{kernel: {class: count}} of the scoring instruction classes in the
+    library's SASS, or {} where the toolkit has no cuobjdump."""
+    from cvt_tpu_torch.ops.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool is None:
+        return {}
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            if name:
+                out[name] = dict.fromkeys(SASS_CLASSES, 0)
+            continue
+        op = re.search(r"\b(IMMA|IGMMA|IDP\.?4A)\b", line)
+        if name and op:                     # dp4a is IDP.4A in SASS
+            out[name][op.group(1).replace(".", "")] += 1
+    return out
 
 
 def random_kernel_args(npad: int, b: int, n_valid: int):
@@ -326,11 +467,12 @@ def phase_timing(idx, q_dev, dec_args, cached_args, reps: int) -> dict:
                               reps)
     idx._dec8_n = dec8
     out["cached_ms"] = cuda_ms(lambda: idx.search(q_dev, K), reps)
-    out["adc_segmin_ms"] = cuda_ms(lambda: T.adc_segmin(*dec_args), reps)
+    out["adc_segmin_ms"] = cuda_ms(lambda: T.adc_segmin(*dec_args),
+                                   2 * reps)
     out["adc_segmin_plain_ms"] = cuda_ms(
         lambda: T.adc_segmin_plain(*dec_args), 1)
     out["adc_segmin_cached_ms"] = cuda_ms(
-        lambda: T.adc_segmin_cached(*cached_args), reps)
+        lambda: T.adc_segmin_cached(*cached_args), 2 * reps)
     out["adc_segmin_cached_plain_ms"] = cuda_ms(
         lambda: T.adc_segmin_cached_plain(*cached_args), 1)
     return out
@@ -550,7 +692,8 @@ def phase_sq_timing(idx, xq, args, reps: int) -> dict:
     out = {f"{mode}_ms": cuda_ms(lambda: idx[mode].search(xq, K), 2)
            for mode in ("bf16", "int8")}
     out["fast_ms"] = cuda_ms(lambda: idx["bf16"].search_fast(xq, K), reps)
-    out["kernel_ms"] = cuda_ms(lambda: T.adc_segmin_cached(*args), reps)
+    out["kernel_ms"] = cuda_ms(lambda: T.adc_segmin_cached(*args),
+                               2 * reps)
     out["plain_ms"] = cuda_ms(lambda: T.adc_segmin_cached_plain(*args), 1)
     return out
 
@@ -702,12 +845,17 @@ def serve_kernel_args(srv, q):
 
 def phase_kmeans(base_dev) -> dict:
     """sharded_kmeans_step over a 'dp' mesh of 1 (NCCL all_reduce) against
-    one step of the port's _lloyd on the same points and centroids."""
+    one step of the port's _lloyd on the same points and centroids; numpy
+    input lands on the mesh's card."""
     from cvt_tpu_torch.ops.kmeans import _lloyd, kmeans_assign
     from cvt_tpu_torch.parallel import make_mesh, sharded_kmeans_step
     x = base_dev[:KM_N]
     c0 = x[:KM_K].clone()
-    c, obj = sharded_kmeans_step(make_mesh({"dp": 1}), x, c0)
+    mesh = make_mesh({"dp": 1})
+    c, obj = sharded_kmeans_step(mesh, x, c0)
+    cn, _ = sharded_kmeans_step(mesh, x.cpu().numpy(), c0.cpu().numpy())
+    assert cn.device == x.device, cn.device
+    assert torch.allclose(cn, c, rtol=1e-5, atol=1e-4)
     want, _, _ = _lloyd(x, c0, KM_K, 1, None)
     _, d0 = kmeans_assign(x, c0)
     err = float((c - want).abs().max())
@@ -751,6 +899,10 @@ def run_sq(base_dev, q_dev, stamp: str) -> dict:
               f"{N_QUERIES / ms * 1e3:.0f} QPS {stamp}")
     print(f"adc_segmin_cached at the SQ path: kernel {stm['kernel_ms']:.3f}"
           f" ms, twin {stm['plain_ms']:.3f} ms {stamp}")
+    sq["bound"] = share(stm["kernel_ms"], adc_bound(args, cached=True))
+    print_bound("adc_segmin_cached", f"the SQ path (Npad "
+                f"{args[2].shape[1]}, Bpad {args[0].shape[0]}, tile "
+                f"{args[-1]})", sq["bound"], stamp)
     return sq
 
 
@@ -782,6 +934,11 @@ def run_serving(flat_idx, q_dev, gt, ids_ref, base_dev, stamp: str) -> dict:
     print_compare(f"server's arguments, Npad={args[2].shape[0]} "
                   f"B={SERVE_B} tile {args[-2]} seg {args[-1]}",
                   {"adc_segmin": sv["cmp"]}, stamp)
+    sv["bound"] = share(cuda_ms(lambda: T.adc_segmin(*args), 20),
+                        adc_bound(args, cached=False))
+    print_bound("adc_segmin", f"the server's batch (Npad "
+                f"{args[2].shape[0]}, Bpad {args[0].shape[0]}, tile "
+                f"{args[-2]}, seg {args[-1]})", sv["bound"], stamp)
     km = phase_kmeans(base_dev)
     print(f"sharded_kmeans_step ('dp' mesh of 1, {KM_N} x {D}, K {KM_K}) "
           f"vs _lloyd: max|diff| {km['max_abs_err']:.3g}, objective rel "
@@ -833,9 +990,15 @@ def main() -> int:
     _build.load()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s {stamp}")
     with open(stale[:-3] + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                print("  " + line.strip())
+        for name, line in ptxas_report(f.read()).items():
+            print(f"  ptxas {name}: {line}")
+    sass = sass_classes(stale)
+    for name, counts in sass.items():
+        if "adc_segmin" in name:
+            print(f"  SASS {name}: " + ", ".join(
+                f"{c} {n}" for c, n in counts.items()))
+    if not sass:
+        print("  SASS: cuobjdump not found; instruction classes not read")
 
     rand_dec, rand_cached, rand_norm = random_kernel_args(65_536, 1024,
                                                           65_536 - 1000)
@@ -881,9 +1044,14 @@ def main() -> int:
         ms = tm[f"{name}_ms"]
         print(f"search {name} 1M x 8192, k=10: {ms:.3f} ms/batch, "
               f"{N_QUERIES / ms * 1e3:.0f} QPS {stamp}")
+    flat_b = {"adc_segmin": adc_bound(dec_args, cached=False),
+              "adc_segmin_cached": adc_bound(cached_args, cached=True)}
     for name in ("adc_segmin", "adc_segmin_cached"):
         print(f"{name} 1M x 8192: kernel {tm[name + '_ms']:.3f} ms, twin "
               f"{tm[name + '_plain_ms']:.3f} ms {stamp}")
+        flat_b[name] = share(tm[name + "_ms"], flat_b[name])
+        print_bound(name, f"the flat path (Npad {npad}, Bpad {N_QUERIES})",
+                    flat_b[name], stamp)
 
     iv = phase_ivf(base_dev, q_dev, gt)
     ivf_idx = iv.pop("_index")
@@ -919,34 +1087,74 @@ def main() -> int:
     print(f"ivf_page at the nprobe-{IVF_REF_NPROBE} batch: kernel "
           f"{itm['ivf_page_ms']:.3f} ms, twin {itm['ivf_page_plain_ms']:.3f}"
           f" ms {stamp}")
+    ivf_b = share(itm["ivf_page_ms"], ivf_bound(ivf_args))
+    print_bound("ivf_page", f"the nprobe-{IVF_REF_NPROBE} batch (B "
+                f"{IVF_B}, {ivf_args[5].shape[0]} page slots)", ivf_b, stamp)
 
     sq = run_sq(base_dev, q_dev, stamp)
     sv = run_serving(idx, q_dev, gt, ids_ref, base_dev, stamp)
+    # last: the profiler leaves its hooks behind, which slows the host side
+    # of whatever runs after it
+    from cvt_tpu_torch.ops.kernels import adc_scan as T
+    split = {"adc_segmin": kernel_split(lambda: T.adc_segmin(*dec_args), 5),
+             "adc_segmin_cached": kernel_split(
+                 lambda: T.adc_segmin_cached(*cached_args), 5)}
+    for name, s in split.items():
+        print(f"{name} at the flat path, split (profiler, device ms per "
+              f"call): scan kernel {s['scan_ms']:.3f}, tiletop_kernel "
+              f"{s['tiletop_ms']:.3f} {stamp}")
 
     seg_err = {str(s): c["max_abs_err"] for s, c in segv.items()}
+
+    def sass_of(name: str) -> dict | None:
+        """The scoring classes summed over a kernel's SEG instances, or None
+        where no SASS was read (no cuobjdump)."""
+        if not sass:
+            return None
+        return {c: sum(v[c] for k, v in sass.items()
+                       if k.startswith(name + "<")) for c in SASS_CLASSES}
+
+    def entry(name, source, replaces, launches, max_err, ms, plain_ms, b,
+              **extra):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches,
+                    max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                    library_ms=None, bound_share=b["bound_ms"] / ms, **extra)
+
+    def path(b: dict) -> dict:
+        return {k: b[k] for k in ("ms", "bound_ms", "bound_by",
+                                  "bound_share")}
     kernels = [
-        {"name": "adc_segmin", "route": "cuda", "source": KERNEL_SRC,
-         "replaces": "cvt_tpu/ops/pallas/adc_scan.py:76",
-         "launches": res["launches"]["adc_segmin"] + sv["launches"],
-         "launches_by_path": {"flat": res["launches"]["adc_segmin"],
-                              "serve": sv["launches"]},
-         "max_abs_err": max(cmp["adc_segmin"]["max_abs_err"],
-                            sv["cmp"]["max_abs_err"], *seg_err.values()),
-         "seg_variants_max_abs_err": seg_err,
-         "ms": tm["adc_segmin_ms"], "plain_ms": tm["adc_segmin_plain_ms"]},
-        {"name": "adc_segmin_cached", "route": "cuda", "source": KERNEL_SRC,
-         "replaces": "cvt_tpu/ops/pallas/adc_scan.py:448",
-         "launches": res["launches"]["adc_segmin_cached"] + sq["launches"],
-         "launches_by_path": {"flat": res["launches"]["adc_segmin_cached"],
-                              "sq": sq["launches"]},
-         "max_abs_err": max(cmp["adc_segmin_cached"]["max_abs_err"],
-                            sq["cmp"]["max_abs_err"]),
-         "ms": tm["adc_segmin_cached_ms"],
-         "plain_ms": tm["adc_segmin_cached_plain_ms"]},
-        {"name": "ivf_page", "route": "cuda", "source": IVF_SRC,
-         "replaces": "cvt_tpu/ops/pallas/ivf_scan.py:82",
-         "launches": iv["launches"], "max_abs_err": ivf_cmp["max_abs_err"],
-         "ms": itm["ivf_page_ms"], "plain_ms": itm["ivf_page_plain_ms"]}]
+        entry("adc_segmin", KERNEL_SRC, "cvt_tpu/ops/pallas/adc_scan.py:76",
+              res["launches"]["adc_segmin"] + sv["launches"],
+              max(cmp["adc_segmin"]["max_abs_err"],
+                  sv["cmp"]["max_abs_err"], *seg_err.values()),
+              tm["adc_segmin_ms"], tm["adc_segmin_plain_ms"],
+              flat_b["adc_segmin"],
+              launches_by_path={"flat": res["launches"]["adc_segmin"],
+                                "serve": sv["launches"]},
+              seg_variants_max_abs_err=seg_err,
+              by_path={"flat": path(flat_b["adc_segmin"]),
+                       "serve": path(sv["bound"])},
+              split_ms=split["adc_segmin"], sass=sass_of("adc_segmin_kernel")),
+        entry("adc_segmin_cached", KERNEL_SRC,
+              "cvt_tpu/ops/pallas/adc_scan.py:448",
+              res["launches"]["adc_segmin_cached"] + sq["launches"],
+              max(cmp["adc_segmin_cached"]["max_abs_err"],
+                  sq["cmp"]["max_abs_err"]),
+              tm["adc_segmin_cached_ms"], tm["adc_segmin_cached_plain_ms"],
+              flat_b["adc_segmin_cached"],
+              launches_by_path={"flat": res["launches"]["adc_segmin_cached"],
+                                "sq": sq["launches"]},
+              by_path={"flat": path(flat_b["adc_segmin_cached"]),
+                       "sq": path(sq["bound"])},
+              split_ms=split["adc_segmin_cached"],
+              sass=sass_of("adc_segmin_cached_kernel")),
+        entry("ivf_page", IVF_SRC, "cvt_tpu/ops/pallas/ivf_scan.py:82",
+              iv["launches"], ivf_cmp["max_abs_err"], itm["ivf_page_ms"],
+              itm["ivf_page_plain_ms"], ivf_b,
+              by_path={"ivf": path(ivf_b)}, sass=sass_of("ivf_page_kernel"))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,9 @@ Commands:
   serve   sharded query server over a saved flat ADC index
 
 The other commands of `cvt_tpu.cli` are not ported yet. `serve` runs one
-rank per process: alone it is a 1-rank group on the card (or the CPU
-without one); under torchrun every rank holds one shard of the codes:
+rank per process on the card (`--device cpu` asks for the CPU; without a
+card and without it the command fails): alone it is a 1-rank group; under
+torchrun every rank holds one shard of the codes:
 
     python -m cvt_tpu_torch.cli serve --index pack.npz --queries q.fvecs
     python -m cvt_tpu_torch.cli serve --index pack.npz --stdin < q.jsonl
@@ -63,9 +64,9 @@ def _cmd_serve(args):
                                                 serving_mesh)
     from cvt_tpu_torch.quant.opq import OPQ
 
-    rank = init_distributed()
+    rank = init_distributed(device=args.device)
     world = dist.get_world_size()
-    idx = FlatADCIndex.load(args.index)
+    idx = FlatADCIndex.load(args.index, device=args.device)
     quant = (OPQ(idx.rotation, idx.pq) if idx.rotation is not None
              else idx.pq)
     srv = MultiHostADCServer(quant, serving_mesh(), merge=args.merge)
@@ -104,6 +105,7 @@ def main(argv=None):
     g.add_argument("--merge", default="allgather",
                    choices=["allgather", "ring"])
     g.add_argument("--max-wait-ms", type=float, default=5.0)
+    g.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     g.set_defaults(fn=_cmd_serve)
 
     args = p.parse_args(argv)

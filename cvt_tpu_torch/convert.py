@@ -2,8 +2,9 @@
 
 Each function takes the JAX package's parameters as numpy arrays (for
 example `np.asarray(opq.rotation)`, read-only views are copied) and
-returns the port's object on `device`; the port imports nothing of the
-JAX package.
+returns the port's object on `device`: the card unless the caller passes
+`device="cpu"` (`utils.device.resolve_device`). The port imports nothing
+of the JAX package.
 """
 
 from __future__ import annotations

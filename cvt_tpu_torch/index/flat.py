@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from cvt_tpu_torch.ops.topk import chunked_topk_scan
+from cvt_tpu_torch.utils.device import resolve_device
 
 
 class FlatIndex:
@@ -18,13 +19,13 @@ class FlatIndex:
     """
 
     def __init__(self, dim: int, metric: str = "l2", chunk: int = 65536,
-                 device="cpu"):
+                 device=None):
         if metric not in ("l2", "ip"):
             raise ValueError(f"unknown metric {metric!r}")
         self.dim = dim
         self.metric = metric
         self.chunk = chunk
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._db: torch.Tensor | None = None
 
     @property
@@ -53,7 +54,7 @@ class FlatIndex:
                  dim=self.dim)
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "FlatIndex":
+    def load(cls, path: str, device=None) -> "FlatIndex":
         z = np.load(path, allow_pickle=False)
         idx = cls(int(z["dim"]), str(z["metric"]), device=device)
         idx.add(z["db"])

@@ -31,6 +31,7 @@ from cvt_tpu_torch.ops.kernels.ivf_scan import (build_page_layout,
 from cvt_tpu_torch.ops.kmeans import kmeans, kmeans_assign
 from cvt_tpu_torch.ops.topk import merge_topk, top_k_smallest
 from cvt_tpu_torch.quant.pq import ProductQuantizer
+from cvt_tpu_torch.utils.device import resolve_device
 
 
 def _probed_scores(q, centroids, cw_sqnorm, codebooks, buckets, bucket_ids,
@@ -168,8 +169,8 @@ def _ivf_query_grouped(q, centroids, cw_sqnorm, codebooks, buckets,
 class IVFADCIndex:
     """Inverted-file index with residual PQ codes and batched ADC probes.
 
-    Its tensors live on `device` (the CPU when None); training, encoding
-    and every search run there."""
+    Its tensors live on `device` (the card when None, see
+    `resolve_device`); training, encoding and every search run there."""
 
     ENC_CHUNK = 131_072          # rows encoded per step (bounds memory)
 
@@ -179,7 +180,7 @@ class IVFADCIndex:
         self.m = m
         self.k = k
         self.bucket_cap = bucket_cap
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.centroids: torch.Tensor | None = None   # [Kc, D]
         self.pq: ProductQuantizer | None = None
         self._built = False

@@ -200,9 +200,25 @@ def adc_segmin_cached_plain(q2s, qs, dec8_t, norm_col, n_valid: int,
                          dec8_t.shape[1], seg)
 
 
+# sm_90's per-block opt-in shared memory, the kernels' budget
+SMEM_LIMIT = 227 * 1024
+
+
+def _smem_bytes(d: int, cb_bytes: int) -> int:
+    """Least dynamic shared memory of one ADC kernel block: `smem_bytes`
+    of csrc/adc_scan.cu at two query tiles of 64 rows (the kernel takes
+    three where they fit). The row and query tiles hold D in 128-byte
+    panels; the decode kernel's codebooks (cb_bytes) share the query tiles'
+    region."""
+    panels = -(-d // 128)
+    qregion = max(2 * 64 * 128 * panels, -(-cb_bytes // 16) * 16)
+    return 1024 + 128 * 128 * panels + qregion + 128 * 4
+
+
 def _check_launch(q2s, qs, npad: int, tile_n: int, seg: int, tensors: dict,
-                  dtypes: dict) -> None:
-    """Validate what the kernels take before their pointers are passed."""
+                  dtypes: dict, cb_bytes: int = 0) -> None:
+    """Validate what the kernels take before their pointers are passed.
+    cb_bytes: the decode kernel's int8 codebooks, staged in shared memory."""
     bpad, d = q2s.shape
     dev = q2s.device
     for name, t in tensors.items():
@@ -221,6 +237,11 @@ def _check_launch(q2s, qs, npad: int, tile_n: int, seg: int, tensors: dict,
         raise ValueError(f"seg {seg} must be one of {SEGS} dividing tile_n "
                          f"{tile_n}, which must divide Npad {npad}, a "
                          f"multiple of 128 (one CUDA block's rows)")
+    smem = _smem_bytes(d, cb_bytes)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"D={d} with {cb_bytes} codebook bytes needs "
+                         f"{smem} bytes of shared memory per block, over "
+                         f"the {SMEM_LIMIT}-byte (227 KB) limit")
 
 
 def _outputs(npad: int, tile_n: int, bpad: int, seg: int, dev):
@@ -253,7 +274,7 @@ def adc_segmin(q2s, qs, codes, cb_q, s2, n_valid: int, tile_n: int,
     _check_launch(q2s, qs, npad, tile_n, seg,
                   dict(q2s=q2s, qs=qs, codes=codes, cb_q=cb_q, s2=s2),
                   dict(q2s=torch.int8, qs=torch.float32, codes=torch.uint8,
-                       cb_q=torch.int8, s2=torch.float32))
+                       cb_q=torch.int8, s2=torch.float32), cb_q.numel())
     bpad, d = q2s.shape
     if codes.shape[1] != m or m * ds != d or s2.shape != (d,):
         raise ValueError("codes/cb_q/s2 shapes disagree with q2s")

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from cvt_tpu_torch.ops.topk import top_k_largest
+from cvt_tpu_torch.utils.device import resolve_device
 
 
 class KMeansResult(NamedTuple):
@@ -119,8 +120,10 @@ def kmeans(gen: torch.Generator, x, k: int, *, iters: int = 25,
     """Full k-means: seed + `iters` Lloyd steps + final assignment.
 
     x: [N, D] float (array or tensor). Deterministic given `gen`, a CPU
-    `torch.Generator`. `device` defaults to x's own (the CPU for numpy)."""
-    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    `torch.Generator`. `device` defaults to x's own for a tensor, else
+    the card (`resolve_device`)."""
+    x = torch.as_tensor(x, dtype=torch.float32,
+                        device=resolve_device(device, like=x))
     if init == "random":
         c0 = _init_random(gen, x, k)
     elif init == "kmeans++":

@@ -13,6 +13,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from .mesh import mesh_device
+
 
 def _local_step(x, centroids, *, group):
     """x: this rank's shard [n_local, D]; centroids [K, D], the same on
@@ -43,7 +45,10 @@ def sharded_kmeans_step(mesh: DeviceMesh, x, centroids, *, axis: str = "dp"):
     """One data-parallel Lloyd step. x is THIS rank's shard [n_local, D]
     (the JAX function's sharded [N, D] as one rank sees it), centroids the
     same [K, D] on every rank. Returns (new_centroids, mean_sq_dist), the
-    same on every rank."""
-    return _local_step(torch.as_tensor(x, dtype=torch.float32),
-                       torch.as_tensor(centroids, dtype=torch.float32),
+    same on every rank. A tensor x keeps its device; numpy goes to this
+    rank's device in the mesh."""
+    dev = x.device if isinstance(x, torch.Tensor) else mesh_device(mesh)
+    return _local_step(torch.as_tensor(x, dtype=torch.float32, device=dev),
+                       torch.as_tensor(centroids, dtype=torch.float32,
+                                       device=dev),
                        group=mesh.get_group(axis))

@@ -3,8 +3,9 @@
 Counterpart of `cvt_tpu.parallel.serving`:
   * init_distributed() — starts the process group (idempotent): under
     torchrun from its environment, otherwise a 1-rank group through a
-    FileStore in a temporary directory (no TCP port). NCCL for CUDA, gloo
-    for the CPU; a failed start raises, nothing switches backend.
+    FileStore in a temporary directory (no TCP port). NCCL on the card
+    by default, gloo only for device="cpu"; a failed start raises,
+    nothing switches backend.
   * MultiHostADCServer — each rank holds its own shard of the codes
     ([per, M] uint8 on its device), runs the `adc_segmin` kernel on it
     and merges candidates over the 'db' group with one all_gather or a
@@ -42,23 +43,29 @@ from cvt_tpu_torch.parallel.sharded_search import (_gather_merge,
                                                    _local_pallas_topk,
                                                    _place_quantizer, _rotate,
                                                    _segment_plan)
+from cvt_tpu_torch.utils.device import resolve_device
 
 
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
-                     process_id: int | None = None) -> int:
+                     process_id: int | None = None, device=None) -> int:
     """Start the default process group once; later calls return the rank.
 
     Under torchrun (RANK / WORLD_SIZE / MASTER_ADDR in the environment)
     every process joins through the environment; with num_processes > 1
     and coordinator_address ('host:port') through TCP; otherwise as the
     one rank of a group whose store is a file in a temporary directory.
-    With CUDA each process takes card LOCAL_RANK (or rank mod the card
-    count) and an NCCL group, started eagerly so that a failure raises
-    here; without CUDA a gloo group. Returns the process's rank."""
+    On the card (the default, `resolve_device`) each process takes card
+    LOCAL_RANK (or rank mod the card count) and an NCCL group, started
+    eagerly so that a failure raises here; device="cpu" asks for a gloo
+    group. Without a card and without that request it raises. Returns the
+    process's rank."""
     if dist.is_initialized():
         return dist.get_rank()
-    cuda = torch.cuda.is_available()
+    kind = resolve_device(device).type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"no process group for device {kind!r}")
+    cuda = kind == "cuda"
     backend = "nccl" if cuda else "gloo"
     env = os.environ
     kw = {}

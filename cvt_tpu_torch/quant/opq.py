@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from cvt_tpu_torch.quant.pq import ProductQuantizer
+from cvt_tpu_torch.utils.device import resolve_device
 
 
 def _procrustes(x: torch.Tensor, yhat: torch.Tensor) -> torch.Tensor:
@@ -28,7 +29,7 @@ class OPQ:
 
     def __init__(self, rotation, pq: ProductQuantizer, device=None):
         """`device` defaults to the quantizer's."""
-        device = pq.device if device is None else torch.device(device)
+        device = resolve_device(device, like=pq.codebooks)
         self.rotation = torch.as_tensor(rotation, dtype=torch.float32,
                                         device=device)
         self.pq = (pq if pq.device == device
@@ -52,7 +53,8 @@ class OPQ:
         gen: a CPU `torch.Generator` (random rotation, then the PQ init).
         init: 'random' (QR of a Gaussian — a random rotation) or
         'identity' (plain PQ as the starting point)."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        x = torch.as_tensor(x, dtype=torch.float32,
+                            device=resolve_device(device, like=x))
         d = x.shape[1]
         if init == "random":
             g = torch.randn((d, d), generator=gen).to(x.device)

@@ -13,20 +13,27 @@ import numpy as np
 import torch
 
 from cvt_tpu_torch.ops.linalg import l2_normalize
+from cvt_tpu_torch.utils.device import resolve_device
 
 
 class PCA:
     def __init__(self, mean, components, eigenvalues, whiten: bool = False,
                  device=None):
         """mean [D]; components [out_dim, D], rows the top eigenvectors;
-        eigenvalues [out_dim]. `device` defaults to mean's own."""
-        self.mean = torch.as_tensor(mean, dtype=torch.float32, device=device)
+        eigenvalues [out_dim]. `device` defaults to mean's own for a
+        tensor, else the card (`resolve_device`)."""
+        self.mean = torch.as_tensor(mean, dtype=torch.float32,
+                                    device=resolve_device(device, like=mean))
         dev = self.mean.device
         self.components = torch.as_tensor(components, dtype=torch.float32,
                                           device=dev)
         self.eigenvalues = torch.as_tensor(eigenvalues, dtype=torch.float32,
                                            device=dev)
         self.whiten = whiten
+
+    @property
+    def device(self) -> torch.device:
+        return self.mean.device
 
     @property
     def in_dim(self) -> int:
@@ -41,7 +48,8 @@ class PCA:
               device=None) -> "PCA":
         """Fit on x [N, D], keeping the top `out_dim` principal axes
         (descending eigenvalues, ties in eigh's order)."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        x = torch.as_tensor(x, dtype=torch.float32,
+                            device=resolve_device(device, like=x))
         mean = torch.mean(x, dim=0)
         xc = x - mean[None, :]
         cov = (xc.T @ xc) / max(x.shape[0] - 1, 1)

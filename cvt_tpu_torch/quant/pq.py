@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from cvt_tpu_torch.ops.kmeans import _init_random, _lloyd, kmeans_assign
+from cvt_tpu_torch.utils.device import resolve_device
 
 
 class ProductQuantizer:
@@ -18,9 +19,11 @@ class ProductQuantizer:
 
     def __init__(self, codebooks, device=None):
         """codebooks [M, K, ds] float32 (array or tensor); `device`
-        defaults to the codebooks' own (the CPU for numpy)."""
-        self.codebooks = torch.as_tensor(codebooks, dtype=torch.float32,
-                                         device=device)
+        defaults to the codebooks' own for a tensor, else the card
+        (`resolve_device`)."""
+        self.codebooks = torch.as_tensor(
+            codebooks, dtype=torch.float32,
+            device=resolve_device(device, like=codebooks))
 
     @property
     def device(self) -> torch.device:
@@ -52,7 +55,8 @@ class ProductQuantizer:
         `gen` is a CPU `torch.Generator` for the random init;
         `init_codebooks` [M, K, ds] warm-starts Lloyd instead (OPQ's
         alternating optimization)."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        x = torch.as_tensor(x, dtype=torch.float32,
+                            device=resolve_device(device, like=x))
         n, d = x.shape
         if d % m:
             raise ValueError(f"dim {d} not divisible by m={m}")

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from cvt_tpu_torch.ops.linalg import l2_normalize
+from cvt_tpu_torch.utils.device import resolve_device
 
 
 def _encode(x, vmin, vdiff, rounding: str) -> torch.Tensor:
@@ -38,8 +39,9 @@ class ScalarQuantizer:
 
     def __init__(self, vmin, vdiff, rounding: str = "truncate", device=None):
         """vmin, vdiff [D] (arrays or tensors); `device` defaults to
-        vmin's own (the CPU for numpy)."""
-        self.vmin = torch.as_tensor(vmin, dtype=torch.float32, device=device)
+        vmin's own for a tensor, else the card (`resolve_device`)."""
+        self.vmin = torch.as_tensor(vmin, dtype=torch.float32,
+                                    device=resolve_device(device, like=vmin))
         self.vdiff = torch.as_tensor(vdiff, dtype=torch.float32,
                                      device=self.vmin.device)
         self.rounding = rounding
@@ -57,7 +59,8 @@ class ScalarQuantizer:
               device=None) -> "ScalarQuantizer":
         """Train per-dim (vmin, vdiff) on x [N, D]. l2norm=True matches the
         reference trainer, which L2-normalizes every vector first."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        x = torch.as_tensor(x, dtype=torch.float32,
+                            device=resolve_device(device, like=x))
         if l2norm:
             x = l2_normalize(x)
         vmin = torch.amin(x, dim=0)

@@ -45,8 +45,8 @@ def _scenarios(z, rank: int) -> dict:
 
     out = {}
     assert init_distributed() == rank        # a second start is a no-op
-    pq = pq_from_numpy(z["codebooks"])
-    opq = opq_from_numpy(z["rotation"], z["opq_codebooks"])
+    pq = pq_from_numpy(z["codebooks"], device="cpu")
+    opq = opq_from_numpy(z["rotation"], z["opq_codebooks"], device="cpu")
     base, queries = z["base"], z["queries"]
     q16 = queries[:16]
 
@@ -85,6 +85,7 @@ def _scenarios(z, rank: int) -> dict:
     c, obj = sharded_kmeans_step(cpu_mesh({"dp": 4}),
                                  x[rank * per_x:(rank + 1) * per_x],
                                  z["km_c0"])
+    assert c.device == torch.device("cpu")    # numpy: the gloo mesh's CPU
     out["km_c"], out["km_obj"] = c, obj[None]
 
     mesh2 = cpu_mesh({"dp": 2, "db": 2})

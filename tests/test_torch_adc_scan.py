@@ -263,6 +263,25 @@ def test_cpu_wrappers_run_twins_without_building(setup, monkeypatch):
                             1024)
 
 
+@pytest.mark.parametrize("d,cb_bytes,fits", [
+    (128, 256 * 128, True), (768, 0, True), (896, 0, True),
+    (900, 0, False), (1040, 0, False),
+    (580, 256 * 580, True), (640, 256 * 640, False)])
+def test_check_launch_holds_the_shared_memory_budget(d, cb_bytes, fits):
+    """The kernels' block must fit the 227 KB opt-in at two query tiles:
+    the cached kernel up to D = 896, the decode kernel with 256-entry
+    codebooks up to D = 580. Shapes past it are refused before launch."""
+    q2s = torch.zeros((128, d), dtype=torch.int8)
+    qs = torch.ones(1)
+    args = (q2s, qs, 1024, 1024, 128, dict(q2s=q2s, qs=qs),
+            dict(q2s=torch.int8, qs=torch.float32), cb_bytes)
+    if fits:
+        T._check_launch(*args)
+    else:
+        with pytest.raises(ValueError, match="227 KB"):
+            T._check_launch(*args)
+
+
 def test_decode_int8_out_of_range_codes_decode_to_zero(setup):
     codes = np.array([[0] * M, [K - 1] * M, [K] * M, [255] * M], np.uint8)
     dec = T.decode_int8(t(codes), setup["cb_q"]).numpy()

@@ -75,7 +75,8 @@ def pack(tmp_path_factory):
 def test_serve_batch_mode_matches_reference(pack):
     tmp, q, srv = pack
     ids = _serve("--index", str(tmp / "pack.npz"), "--queries",
-                 str(tmp / "q.fvecs"), "--k", "10", "--batch", "16")
+                 str(tmp / "q.fvecs"), "--k", "10", "--batch", "16",
+                 "--device", "cpu")
     want = np.concatenate([np.asarray(srv.serve(q[s:s + 16], 10)[1])
                            for s in range(0, 40, 16)])
     np.testing.assert_array_equal(ids, want)
@@ -87,7 +88,8 @@ def test_serve_stdin_mode_matches_reference(pack):
     tmp, q, srv = pack
     lines = "\n".join(json.dumps(r.tolist()) for r in q[:3]) + "\n\n"
     ids = _serve("--index", str(tmp / "pack.npz"), "--stdin", "--k", "5",
-                 "--batch", "8", "--merge", "ring", stdin=lines)
+                 "--batch", "8", "--merge", "ring", "--device", "cpu",
+                 stdin=lines)
     want = np.concatenate([np.asarray(srv.serve(q[j:j + 1], 5)[1])
                            for j in range(3)])
     np.testing.assert_array_equal(ids, want)

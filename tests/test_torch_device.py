@@ -1,0 +1,123 @@
+"""The device rule of the port's entry points (`utils.device`): the card
+unless the caller asks for the CPU, by `device="cpu"`, by CPU tensors or
+by `--device cpu`. Without a card and without that request they raise.
+
+`torch.cuda.is_available` is patched to return False, so every test
+sees a machine without a card, whatever machine it runs on."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from cvt_tpu_torch import convert
+from cvt_tpu_torch.index import FlatADCIndex, FlatIndex, IVFADCIndex
+from cvt_tpu_torch.ops.kmeans import kmeans
+from cvt_tpu_torch.parallel import init_distributed
+from cvt_tpu_torch.quant import OPQ, PCA, ProductQuantizer, ScalarQuantizer
+from cvt_tpu_torch.utils import resolve_device
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RNG = np.random.default_rng(5)
+CB = RNG.normal(size=(4, 16, 8)).astype(np.float32)     # M 4, K 16, D 32
+ROT = np.linalg.qr(RNG.normal(size=(32, 32)))[0].astype(np.float32)
+X = RNG.normal(size=(64, 32)).astype(np.float32)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture(scope="module")
+def pack(tmp_path_factory):
+    """A saved FlatADCIndex (OPQ) built on the CPU."""
+    path = str(tmp_path_factory.mktemp("dev") / "pack.npz")
+    idx = FlatADCIndex(convert.opq_from_numpy(ROT, CB, device="cpu"))
+    idx.add(X)
+    idx.save(path)
+    return path
+
+
+# each entry point called with numpy (or a path) and `device`
+ENTRY_POINTS = {
+    "FlatIndex": lambda p, dev: FlatIndex(32, device=dev),
+    "ProductQuantizer": lambda p, dev: ProductQuantizer(CB, device=dev),
+    "FlatADCIndex.load": lambda p, dev: FlatADCIndex.load(p, device=dev),
+    "opq_from_numpy": lambda p, dev: convert.opq_from_numpy(ROT, CB,
+                                                            device=dev),
+    "ScalarQuantizer.train": lambda p, dev: ScalarQuantizer.train(
+        X, device=dev),
+    "PCA.train": lambda p, dev: PCA.train(X, 4, device=dev),
+    "IVFADCIndex": lambda p, dev: IVFADCIndex(coarse_k=4, m=4, k=16,
+                                              device=dev),
+    "kmeans": lambda p, dev: kmeans(torch.Generator().manual_seed(0), X, 4,
+                                    iters=1, device=dev),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_without_card_raises(no_card, pack, name):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ENTRY_POINTS[name](pack, None)
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_with_device_cpu_works(no_card, pack, name):
+    obj = ENTRY_POINTS[name](pack, "cpu")
+    dev = getattr(obj, "device", None)
+    if dev is None:             # kmeans returns its result's tensors
+        dev = obj.centroids.device
+    assert dev == torch.device("cpu")
+
+
+def test_cpu_tensors_keep_their_device(no_card):
+    x = torch.from_numpy(X)
+    assert resolve_device(like=x) == torch.device("cpu")
+    pq = ProductQuantizer(torch.from_numpy(CB))
+    assert pq.device == torch.device("cpu")
+    opq = OPQ(torch.from_numpy(ROT), pq)
+    assert opq.device == torch.device("cpu")
+    assert FlatADCIndex(opq).device == torch.device("cpu")
+    assert ScalarQuantizer.train(x).device == torch.device("cpu")
+    assert kmeans(torch.Generator().manual_seed(0), x, 4,
+                  iters=1).centroids.device == torch.device("cpu")
+    # an explicit device wins over the tensor's
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ProductQuantizer(torch.from_numpy(CB), device="cuda")
+
+
+def test_loaded_index_searches_where_asked(no_card, pack):
+    idx = FlatADCIndex.load(pack, device="cpu")
+    assert idx._resolve_impl() == "scan"
+    d, i = idx.search(X[:3], 5)
+    assert i.device == torch.device("cpu") and i.shape == (3, 5)
+    assert int(i[:, 0].min()) >= 0
+
+
+def test_init_distributed_without_card_raises(no_card):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        init_distributed()
+
+
+def test_cli_serve_without_device_cpu_fails(pack, tmp_path):
+    """`serve` defaults to the card: on a machine without one (patched in
+    the subprocess) it exits non-zero and names --device's way out."""
+    from cvt_tpu_torch.io.vecs import write_fvecs
+    qf = str(tmp_path / "q.fvecs")
+    write_fvecs(qf, X[:4])
+    code = ("import sys, runpy, torch; torch.cuda.is_available = "
+            "lambda: False; sys.argv = ['cli'] + sys.argv[1:]; "
+            "runpy.run_module('cvt_tpu_torch.cli', run_name='__main__')")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "LOCAL_RANK")}
+    env["PYTHONPATH"] = ROOT
+    r = subprocess.run([sys.executable, "-c", code, "serve", "--index",
+                        pack, "--queries", qf], capture_output=True,
+                       text=True, env=env, cwd=ROOT, timeout=120)
+    assert r.returncode != 0
+    assert 'device="cpu"' in r.stderr
+    assert r.stdout.strip() == ""

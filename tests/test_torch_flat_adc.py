@@ -31,7 +31,7 @@ def slice_setup(sift_like):
     jopq = JOPQ.train(jax.random.key(0), base[:2048], m=8, k=64,
                       opq_iters=2, kmeans_iters=4, final_kmeans_iters=4)
     opq = opq_from_numpy(np.asarray(jopq.rotation),
-                         np.asarray(jopq.pq.codebooks))
+                         np.asarray(jopq.pq.codebooks), device="cpu")
     jidx = JFlatADCIndex(jopq, impl="pallas")
     jidx.add(base)
     idx = FlatADCIndex(opq, impl="kernel")
@@ -87,7 +87,8 @@ def test_search_ids_match_reference(slice_setup, exact):
     idx2 = flat_adc_from_numpy(np.asarray(jidx._codes),
                                np.asarray(jidx._dec_sq),
                                np.asarray(jidx.pq.codebooks),
-                               np.asarray(jidx.rotation), impl="kernel")
+                               np.asarray(jidx.rotation), device="cpu",
+                               impl="kernel")
     d, i = idx2.search(queries, 10, exact=exact)
     jd, ji = jidx.search(queries, 10, exact=exact)
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
@@ -124,7 +125,8 @@ def test_adc_scan_reference_engine(slice_setup):
     idx = flat_adc_from_numpy(np.asarray(jidx._codes),
                               np.asarray(jidx._dec_sq),
                               np.asarray(jidx.pq.codebooks),
-                              np.asarray(jidx.rotation), impl="scan")
+                              np.asarray(jidx.rotation), device="cpu",
+                              impl="scan")
     jx = JFlatADCIndex(jopq, chunk=1024, impl="xla")
     jx.add(codes=np.asarray(jidx._codes))
     idx.chunk = 1024
@@ -158,14 +160,14 @@ def test_save_load_both_directions(slice_setup, tmp_path):
     back = JFlatADCIndex.load(str(tmp_path / "port.npz"))
     np.testing.assert_array_equal(np.asarray(back._codes),
                                   idx._codes.numpy())
-    loaded = FlatADCIndex.load(str(tmp_path / "jax.npz"))
+    loaded = FlatADCIndex.load(str(tmp_path / "jax.npz"), device="cpu")
     loaded.impl = "kernel"
     _, i1 = loaded.search(queries[:16], 10)
     jidx2 = JFlatADCIndex.load(str(tmp_path / "jax.npz"))
     jidx2.impl = "pallas"
     _, ji = jidx2.search(queries[:16], 10)
     np.testing.assert_array_equal(i1.numpy(), np.asarray(ji))
-    again = FlatADCIndex.load(str(tmp_path / "port.npz"))
+    again = FlatADCIndex.load(str(tmp_path / "port.npz"), device="cpu")
     again.impl = "kernel"
     _, i2 = again.search(queries[:16], 10)
     _, i3 = idx.search(queries[:16], 10)
@@ -175,7 +177,8 @@ def test_save_load_both_directions(slice_setup, tmp_path):
 def test_index_api_edges(sift_like):
     base, queries = sift_like
     pq = ProductQuantizer.train(torch.Generator().manual_seed(0),
-                                base[:1024], m=8, k=16, iters=2)
+                                base[:1024], m=8, k=16, iters=2,
+                                device="cpu")
     idx = FlatADCIndex(pq)
     assert idx._resolve_impl() == "scan"
     with pytest.raises(RuntimeError):
@@ -204,10 +207,11 @@ def test_port_pipeline_recall_on_cpu():
     in the port, encode, fast/exact/cached search, exact ground truth."""
     base, queries = synthetic_sift(8192, 128, n_queries=64, seed=0)
     opq = OPQ.train(torch.Generator().manual_seed(0), base[:4096], m=8,
-                    k=32, opq_iters=2, kmeans_iters=3, final_kmeans_iters=4)
+                    k=32, opq_iters=2, kmeans_iters=3, final_kmeans_iters=4,
+                    device="cpu")
     idx = FlatADCIndex(opq, impl="kernel")
     idx.add(base)
-    exact = FlatIndex(128)
+    exact = FlatIndex(128, device="cpu")
     exact.add(base)
     _, gt = exact.search(queries, 1)
     _, fast = idx.search(queries, 10)

@@ -35,7 +35,8 @@ def ivf_setup(sift_like):
     a, c, dq = map(np.array, jidx.encode_chunk(base))
     jidx.build_from_codes(a, c, dq, group_ids=groups)
     idx = ivf_adc_from_numpy(np.asarray(jidx.centroids),
-                             np.asarray(jidx.pq.codebooks), bucket_cap=96)
+                             np.asarray(jidx.pq.codebooks), bucket_cap=96,
+                             device="cpu")
     idx.build_from_codes(a, c, dq, group_ids=groups)
     return base, queries, groups, jidx, idx, (a, c, dq)
 
@@ -92,12 +93,14 @@ def test_build_encodes_like_reference(ivf_setup):
         jidx.encode_chunk(base)[2])[ok], rtol=1e-5)
     # build() lays out what encode_chunk gives
     full = ivf_adc_from_numpy(np.asarray(jidx.centroids),
-                              np.asarray(jidx.pq.codebooks), bucket_cap=96)
+                              np.asarray(jidx.pq.codebooks), bucket_cap=96,
+                              device="cpu")
     full.ENC_CHUNK = 1500                      # several chunks
     full.build(base)
     assert full.ntotal == base.shape[0]
     ref = ivf_adc_from_numpy(np.asarray(jidx.centroids),
-                             np.asarray(jidx.pq.codebooks), bucket_cap=96)
+                             np.asarray(jidx.pq.codebooks), bucket_cap=96,
+                             device="cpu")
     ref.build_from_codes(ta, tc, tdq)
     np.testing.assert_array_equal(full._buckets.numpy(),
                                   ref._buckets.numpy())
@@ -153,7 +156,7 @@ def test_save_load_both_directions(ivf_setup, tmp_path):
         np.testing.assert_array_equal(zp[key], zj[key], err_msg=key)
     q = queries[:16]
     back = JIVFADCIndex.load(str(tmp_path / "port.npz"))
-    loaded = IVFADCIndex.load(str(tmp_path / "jax.npz"))
+    loaded = IVFADCIndex.load(str(tmp_path / "jax.npz"), device="cpu")
     for a, b in ((loaded.search(q, 10), jidx.search(q, 10)),
                  (loaded.search_fast(q, 10)[:2], back.search_fast(q, 10)[:2]),
                  (loaded.search_grouped(q, 5)[:2],
@@ -174,7 +177,7 @@ def test_port_train_reaches_reference_recall(sift_like):
     gt = np.asarray(exact.search(queries, 1)[1])[:, 0]
     r_full, r8 = [], []
     for seed in range(5):
-        idx = IVFADCIndex(coarse_k=64, m=8, k=64)
+        idx = IVFADCIndex(coarse_k=64, m=8, k=64, device="cpu")
         idx.train(torch.Generator().manual_seed(seed), base[:2048],
                   coarse_iters=6, pq_iters=6)
         idx.build(base)
@@ -196,7 +199,7 @@ def test_port_train_reaches_reference_recall(sift_like):
 
 def test_index_api_edges(sift_like):
     base, queries = sift_like
-    idx = IVFADCIndex(coarse_k=8, m=8, k=16)
+    idx = IVFADCIndex(coarse_k=8, m=8, k=16, device="cpu")
     with pytest.raises(RuntimeError):
         idx.build(base[:100])
     idx.train(torch.Generator().manual_seed(0), base[:512], coarse_iters=2,

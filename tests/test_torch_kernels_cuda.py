@@ -5,7 +5,8 @@ torch.cuda.is_available() is false (the decision is made in the fixture,
 never at import). The kernels are built from csrc/ on first use.
 
 Tolerance: bitwise for the kernels. The twins sum the norm column in the
-kernel's order (see `_row_norms`), and every score is an exact integer.
+kernel's order (see `_row_norms`), and every score is an exact integer (the
+ADC kernels sum int8 products on the tensor cores, exact in any order).
 An index on the card against the same index on the CPU: distances rtol
 1e-5 (float32 sums in another order), ids equal except at near-ties.
 Where JAX is not installed, skip tests/conftest.py (it imports jax):
@@ -34,13 +35,17 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(dev, npad=8192, b=200, m=8, k=256, ds=16, seed=0):
+def _inputs(dev, npad=8192, b=200, m=8, k=256, ds=16, seed=0, seg=T.SEG):
+    """Random codes and codebooks, queries folded with seg's norm cap."""
     g = torch.Generator().manual_seed(seed)
     cb = torch.randn((m, k, ds), generator=g) * 20
     cb_q, srow = T._quantize_codebooks(cb)
     codes = torch.randint(0, k, (npad, m), generator=g, dtype=torch.uint8)
     q = torch.randn((b, m * ds), generator=g) * 50
-    q2s, qs = T._fold_for(q.to(dev), srow.to(dev), m * ds)
+    vcap, _ = T._pack_caps(seg, m * ds)
+    srow_d = srow.to(dev)
+    q2s, qs = T._fold_queries(q.to(dev), srow_d,
+                              127.0 ** 2 * torch.sum(srow_d * srow_d), vcap)
     return (q2s, qs, codes.to(dev), cb_q.to(dev), (srow * srow).to(dev),
             cb, q)
 
@@ -53,36 +58,6 @@ def test_segmin_kernel_equals_twin(card, tile_n, n_valid):
     torch.cuda.synchronize()
     assert T.adc_segmin.launches == before + 1
     psp, ptt = T.adc_segmin_plain(q2s, qs, codes, cb_q, s2, n_valid, tile_n)
-    assert torch.equal(sp, psp)
-    assert torch.equal(tt, ptt)
-
-
-@pytest.mark.parametrize("seg", [64, 32, 16, 8])
-def test_segmin_kernel_equals_twin_at_each_seg(card, seg):
-    """The segment-size template against the twin, with the last tile
-    partly valid (n_valid inside a tile, not on a segment boundary)."""
-    q2s, qs, codes, cb_q, s2, _, _ = _inputs(card)
-    for tile_n in (1024, 256):
-        sp, tt = T.adc_segmin(q2s, qs, codes, cb_q, s2, 8192 - 300, tile_n,
-                              seg)
-        torch.cuda.synchronize()
-        assert sp.shape == (8192 // seg, 256)
-        psp, ptt = T.adc_segmin_plain(q2s, qs, codes, cb_q, s2, 8192 - 300,
-                                      tile_n, seg)
-        assert torch.equal(sp, psp)
-        assert torch.equal(tt, ptt)
-
-
-@pytest.mark.parametrize("seg", [128, 32, 8])
-def test_segmin_cached_kernel_equals_twin_at_seg(card, seg):
-    q2s, qs, codes, cb_q, s2, _, _ = _inputs(card)
-    dec = T.decode_int8(codes, cb_q)
-    dec8_t = dec.T.contiguous()
-    norm_col = T._row_norms(dec, s2)[:, None].contiguous()
-    sp, tt = T.adc_segmin_cached(q2s, qs, dec8_t, norm_col, 7000, 1024, seg)
-    torch.cuda.synchronize()
-    psp, ptt = T.adc_segmin_cached_plain(q2s, qs, dec8_t, norm_col, 7000,
-                                         1024, seg)
     assert torch.equal(sp, psp)
     assert torch.equal(tt, ptt)
 
@@ -102,6 +77,52 @@ def test_segmin_cached_kernel_equals_twin(card):
     assert torch.equal(tt, ptt)
 
 
+def _packable(seg: int, d: int) -> bool:
+    try:
+        T._pack_caps(seg, d)
+    except ValueError:
+        return False
+    return True
+
+
+_EDGE_SHAPES = [  # npad, b, m, k, ds, n_valid, tile_n
+    (128, 100, 4, 64, 9, 77, 128),        # D = 36: k zero-padded to 64
+    (640, 128, 8, 64, 16, 500, 128),      # Npad % 256 != 0; Bpad = 128
+    (1152, 300, 2, 64, 20, 1100, 128),    # D = 40; last query tile partial
+    (8192, 200, 8, 256, 16, 7892, 1024),  # n_valid inside a tile
+    (8192, 200, 8, 256, 16, 7892, 256),
+    (1024, 200, 16, 256, 16, 1000, 256),  # D = 256: two K panels
+    (512, 200, 48, 64, 16, 450, 256),     # D = 768: two query tiles
+]
+
+
+@pytest.mark.parametrize("npad,b,m,k,ds,n_valid,tile_n,seg", [
+    (*shape, seg) for shape in _EDGE_SHAPES for seg in T.SEGS
+    if _packable(seg, shape[2] * shape[4])])   # D = 768 needs seg <= 32
+def test_both_kernels_equal_twins_at_edge_shapes(card, npad, b, m, k, ds,
+                                                 n_valid, tile_n, seg):
+    """Both tensor-core kernels against their twins, bitwise, at shapes
+    that stress the fragment maps: D not a multiple of 32, several K
+    panels, one query tile, one row block, Npad not a multiple of 256,
+    n_valid inside a block, and a D whose query ring falls back to two
+    tiles, at every segment size whose int32 keys hold that D."""
+    q2s, qs, codes, cb_q, s2, _, _ = _inputs(card, npad=npad, b=b, m=m,
+                                             k=k, ds=ds, seg=seg)
+    args = (q2s, qs, codes, cb_q, s2, n_valid, tile_n, seg)
+    got, want = T.adc_segmin(*args), T.adc_segmin_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].shape == (npad // seg, q2s.shape[0])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    dec = T.decode_int8(codes, cb_q)
+    cargs = (q2s, qs, dec.T.contiguous(),
+             T._row_norms(dec, s2)[:, None].contiguous(), n_valid, tile_n,
+             seg)
+    got = T.adc_segmin_cached(*cargs)
+    want = T.adc_segmin_cached_plain(*cargs)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_wrappers_refuse_bad_inputs(card):
     q2s, qs, codes, cb_q, s2, _, _ = _inputs(card)
     with pytest.raises(ValueError):
@@ -114,6 +135,13 @@ def test_wrappers_refuse_bad_inputs(card):
         T.adc_segmin(q2s, qs, codes, cb_q, s2, 8192, 1024, 4)
     with pytest.raises(ValueError):
         T.adc_segmin(q2s, qs, codes[:8192 - 64], cb_q, s2, 8000, 64, 32)
+    wide = torch.zeros((128, 1024), dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="227 KB"):   # D = 1024 at seg 8
+        T.adc_segmin_cached(wide, qs, torch.zeros((1024, 1024),
+                                                  dtype=torch.int8,
+                                                  device=card),
+                            torch.zeros((1024, 1), device=card), 1024, 1024,
+                            8)
 
 
 def test_index_on_card_equals_index_on_cpu(card):
@@ -134,6 +162,24 @@ def test_index_on_card_equals_index_on_cpu(card):
             assert torch.equal(a, b)
         else:
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5)
+
+
+def test_loaded_index_lands_on_the_card(card, tmp_path):
+    """FlatADCIndex.load with no device puts the index on the card, where
+    its searches launch the kernel."""
+    _, _, _, _, _, cb, q = _inputs("cpu", npad=4096)
+    idx = FlatADCIndex(ProductQuantizer(cb, device="cpu"), impl="kernel")
+    idx.add(codes=torch.randint(0, 256, (3000, 8), dtype=torch.uint8,
+                                generator=torch.Generator().manual_seed(2)))
+    idx.save(str(tmp_path / "pack.npz"))
+    loaded = FlatADCIndex.load(str(tmp_path / "pack.npz"))
+    assert loaded.device.type == "cuda" and loaded._codes.is_cuda
+    assert loaded._resolve_impl() == "kernel"
+    before = T.adc_segmin.launches
+    _, i = loaded.search(q.numpy(), 10)
+    torch.cuda.synchronize()
+    assert T.adc_segmin.launches == before + 1 and i.is_cuda
+    assert torch.equal(i.cpu(), idx.search(q, 10)[1])
 
 
 def _page_args(dev, d=128, b=200, seed=0):
@@ -199,7 +245,7 @@ def _assert_ids_match(d, i, cd, ci, rel=1e-4, atol=0.0):
 
 def test_ivf_index_on_card_equals_index_on_cpu(card):
     base, queries = synthetic_sift(8192, 128, n_queries=64, seed=0)
-    cpu = IVFADCIndex(coarse_k=64, m=8, k=64, bucket_cap=96)
+    cpu = IVFADCIndex(coarse_k=64, m=8, k=64, bucket_cap=96, device="cpu")
     cpu.train(torch.Generator().manual_seed(0), base[:4096], coarse_iters=4,
               pq_iters=4)
     a, c, dq = (x.numpy() for x in cpu.encode_chunk(base))

@@ -109,7 +109,7 @@ def test_chunked_topk_scan_and_flat_index(metric, rng, tmp_path):
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-5,
                                atol=1e-4)
-    idx = FlatIndex(24, metric, chunk=256)
+    idx = FlatIndex(24, metric, chunk=256, device="cpu")
     idx.add(db[:600])
     idx.add(db[600:])
     jidx = JFlatIndex(24, metric, chunk=256)
@@ -118,12 +118,13 @@ def test_chunked_topk_scan_and_flat_index(metric, rng, tmp_path):
     jd, ji = jidx.search(q, 5)
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
     idx.save(str(tmp_path / "f.npz"))
-    d2, i2 = FlatIndex.load(str(tmp_path / "f.npz")).search(q, 5)
+    d2, i2 = FlatIndex.load(str(tmp_path / "f.npz"),
+                            device="cpu").search(q, 5)
     np.testing.assert_array_equal(i2.numpy(), i.numpy())
     with pytest.raises(ValueError):
         idx.add(db[:, :5])
     with pytest.raises(RuntimeError):
-        FlatIndex(24).search(q, 1)
+        FlatIndex(24, device="cpu").search(q, 1)
 
 
 @pytest.mark.parametrize("chunk", [None, 70])
@@ -170,17 +171,17 @@ def test_lloyd_matches_reference_from_same_start(rng):
 def test_kmeans_deterministic_and_improves(init, rng):
     x = rng.normal(size=(500, 6)).astype(np.float32)
     r1 = tkmeans.kmeans(torch.Generator().manual_seed(0), x, 8, iters=5,
-                        init=init)
+                        init=init, device="cpu")
     r2 = tkmeans.kmeans(torch.Generator().manual_seed(0), x, 8, iters=5,
-                        init=init)
+                        init=init, device="cpu")
     np.testing.assert_array_equal(r1.centroids.numpy(),
                                   r2.centroids.numpy())
     r0 = tkmeans.kmeans(torch.Generator().manual_seed(0), x, 8, iters=0,
-                        init=init)
+                        init=init, device="cpu")
     assert float(r1.objective) <= float(r0.objective)
     assert r1.assignments.dtype == torch.int32
     with pytest.raises(ValueError):
-        tkmeans.kmeans(torch.Generator(), x, 8, init="bogus")
+        tkmeans.kmeans(torch.Generator(), x, 8, init="bogus", device="cpu")
 
 
 def test_jax_key_and_generator_both_seed(rng):
@@ -188,6 +189,7 @@ def test_jax_key_and_generator_both_seed(rng):
     give a valid k-means from the same data."""
     x = rng.normal(size=(400, 4)).astype(np.float32)
     jr = jkmeans.kmeans(jax.random.key(0), x, 6, iters=8)
-    tr = tkmeans.kmeans(torch.Generator().manual_seed(0), x, 6, iters=8)
+    tr = tkmeans.kmeans(torch.Generator().manual_seed(0), x, 6, iters=8,
+                        device="cpu")
     assert abs(float(tr.objective) - float(jr.objective)) \
         < 0.25 * float(jr.objective)

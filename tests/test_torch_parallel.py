@@ -218,7 +218,7 @@ def flat():
     codes = rng.integers(0, 32, size=(3000, 8)).astype(np.uint8)
     cbn = (cb ** 2).sum(-1)
     dsq = cbn[np.arange(8)[None, :], codes].sum(1).astype(np.float32)
-    idx = flat_adc_from_numpy(codes, dsq, cb, impl="kernel")
+    idx = flat_adc_from_numpy(codes, dsq, cb, device="cpu", impl="kernel")
     q = rng.normal(size=(64, 64)).astype(np.float32)
     return idx, q
 

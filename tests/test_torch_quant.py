@@ -44,7 +44,7 @@ def _assert_codes_match(codes, jcodes, pq_cb, x):
 def test_pq_encode_decode_match_reference(jax_pq, sift_like):
     base, queries = sift_like
     cb = np.asarray(jax_pq.codebooks)
-    pq = pq_from_numpy(cb)
+    pq = pq_from_numpy(cb, device="cpu")
     codes = pq.encode(base)
     assert codes.dtype == torch.uint8
     _assert_codes_match(codes, jax_pq.encode(base), cb, base)
@@ -72,14 +72,15 @@ def test_pq_train_from_same_init_matches_reference(jax_pq, sift_like):
     base, _ = sift_like
     init = np.asarray(jax_pq.codebooks)
     pq = ProductQuantizer.train(torch.Generator(), base[:2048], 8, 64,
-                                iters=3, init_codebooks=init)
+                                iters=3, init_codebooks=init, device="cpu")
     jpq = JPQ.train(jax.random.key(1), base[:2048], 8, 64, iters=3,
                     init_codebooks=init)
     np.testing.assert_allclose(pq.codebooks.numpy(),
                                np.asarray(jpq.codebooks), rtol=1e-4,
                                atol=1e-3)
     with pytest.raises(ValueError):
-        ProductQuantizer.train(torch.Generator(), base[:64], 7, 8)
+        ProductQuantizer.train(torch.Generator(), base[:64], 7, 8,
+                               device="cpu")
 
 
 def test_procrustes_matches_reference(rng):
@@ -98,7 +99,8 @@ def test_opq_train_reaches_reference_mse(init, sift_like):
     kw = dict(m=8, k=32, opq_iters=3, kmeans_iters=5, final_kmeans_iters=8,
               init=init)
     jopq = JOPQ.train(jax.random.key(0), base[:2048], **kw)
-    opq = OPQ.train(torch.Generator().manual_seed(0), base[:2048], **kw)
+    opq = OPQ.train(torch.Generator().manual_seed(0), base[:2048],
+                    device="cpu", **kw)
     mse = float(opq.reconstruction_mse(base))
     jmse = float(jopq.reconstruction_mse(base))
     assert abs(mse - jmse) <= 0.02 * jmse, (mse, jmse)
@@ -106,7 +108,7 @@ def test_opq_train_reaches_reference_mse(init, sift_like):
     np.testing.assert_allclose(r @ r.T, np.eye(128), atol=1e-4)
     with pytest.raises(ValueError):
         OPQ.train(torch.Generator(), base[:256], m=8, k=8, opq_iters=1,
-                  init="bogus")
+                  init="bogus", device="cpu")
 
 
 def test_opq_carried_across_and_persisted(sift_like, tmp_path):
@@ -114,7 +116,7 @@ def test_opq_carried_across_and_persisted(sift_like, tmp_path):
     jopq = JOPQ.train(jax.random.key(2), base[:1024], m=8, k=16,
                       opq_iters=1, kmeans_iters=2, final_kmeans_iters=2)
     opq = opq_from_numpy(np.asarray(jopq.rotation),
-                         np.asarray(jopq.pq.codebooks))
+                         np.asarray(jopq.pq.codebooks), device="cpu")
     np.testing.assert_allclose(opq.rotate(queries).numpy(),
                                np.asarray(jopq.rotate(queries)), rtol=1e-5,
                                atol=1e-3)
@@ -134,10 +136,11 @@ def test_opq_carried_across_and_persisted(sift_like, tmp_path):
     back = JOPQ.load(str(tmp_path / "t.npz"))
     np.testing.assert_array_equal(np.asarray(back.rotation),
                                   opq.rotation.numpy())
-    loaded = OPQ.load(str(tmp_path / "j.npz"))
+    loaded = OPQ.load(str(tmp_path / "j.npz"), device="cpu")
     np.testing.assert_array_equal(loaded.pq.codebooks.numpy(),
                                   np.asarray(jopq.pq.codebooks))
     opq.pq.save(str(tmp_path / "p.npz"))
     np.testing.assert_array_equal(
         np.asarray(JPQ.load(str(tmp_path / "p.npz")).codebooks),
-        ProductQuantizer.load(str(tmp_path / "p.npz")).codebooks.numpy())
+        ProductQuantizer.load(str(tmp_path / "p.npz"),
+                              device="cpu").codebooks.numpy())

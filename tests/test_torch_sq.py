@@ -54,7 +54,7 @@ def _carry(jidx, mode="bf16", cache=False):
     return convert.flat_sq_from_numpy(
         np.asarray(jidx._codes_s8), np.asarray(jidx._term3),
         np.asarray(jidx.sq.vmin), np.asarray(jidx.sq.vdiff),
-        jidx.sq.rounding, mode, **extra)
+        jidx.sq.rounding, mode, device="cpu", **extra)
 
 
 def test_sq_train_matches(data):
@@ -62,7 +62,7 @@ def test_sq_train_matches(data):
     raw = np.random.default_rng(1).normal(size=(500, D)).astype(np.float32)
     for l2norm in (False, True):
         j = JSQ.train(raw, l2norm=l2norm)
-        p = ScalarQuantizer.train(raw, l2norm=l2norm)
+        p = ScalarQuantizer.train(raw, l2norm=l2norm, device="cpu")
         np.testing.assert_allclose(p.vmin.numpy(), np.asarray(j.vmin),
                                    rtol=1e-6, atol=1e-7)
         np.testing.assert_allclose(p.vdiff.numpy(), np.asarray(j.vdiff),
@@ -74,7 +74,7 @@ def test_sq_codes_bitwise(data, rounding):
     base, _, jsq, _ = data
     j = JSQ(jsq.vmin, jsq.vdiff, rounding)
     p = convert.sq_from_numpy(np.asarray(jsq.vmin), np.asarray(jsq.vdiff),
-                              rounding)
+                              rounding, device="cpu")
     # a constant dimension (vdiff == 0) encodes to 0 in both
     x = base[:1000].copy()
     jc = np.asarray(j.encode(x))
@@ -92,16 +92,17 @@ def test_sq_codes_bitwise(data, rounding):
     vd = np.asarray(jsq.vdiff).copy()
     vd[3] = 0.0
     np.testing.assert_array_equal(
-        convert.sq_from_numpy(np.asarray(jsq.vmin), vd, rounding).encode(
-            x).numpy(), np.asarray(JSQ(jsq.vmin, jnp.asarray(vd),
-                                       rounding).encode(x)))
+        convert.sq_from_numpy(np.asarray(jsq.vmin), vd, rounding,
+                              device="cpu").encode(x).numpy(),
+        np.asarray(JSQ(jsq.vmin, jnp.asarray(vd), rounding).encode(x)))
     with pytest.raises(ValueError):
         ScalarQuantizer(p.vmin, p.vdiff, "floor").encode(x)
 
 
 def test_sq_reconstruction_loss_and_save_load(data, tmp_path):
     base, _, jsq, _ = data
-    p = convert.sq_from_numpy(np.asarray(jsq.vmin), np.asarray(jsq.vdiff))
+    p = convert.sq_from_numpy(np.asarray(jsq.vmin), np.asarray(jsq.vdiff),
+                              device="cpu")
     # base is normalized already; normalizing again inside would differ
     # in the last bit (rsqrt) and flip codes at truncation boundaries
     l2, ip = p.reconstruction_loss(base[:512], l2norm=False)
@@ -112,7 +113,7 @@ def test_sq_reconstruction_loss_and_save_load(data, tmp_path):
     jsq.save(str(tmp_path / "j.npz"))
     back = JSQ.load(str(tmp_path / "p.npz"))
     np.testing.assert_array_equal(np.asarray(back.vmin), np.asarray(jsq.vmin))
-    mine = ScalarQuantizer.load(str(tmp_path / "j.npz"))
+    mine = ScalarQuantizer.load(str(tmp_path / "j.npz"), device="cpu")
     assert mine.rounding == jsq.rounding
     np.testing.assert_array_equal(mine.vdiff.numpy(), np.asarray(jsq.vdiff))
 
@@ -120,7 +121,8 @@ def test_sq_reconstruction_loss_and_save_load(data, tmp_path):
 def test_add_matches_reference_layout(data):
     base, _, jsq, jidx = data
     p = FlatSQIndex(convert.sq_from_numpy(np.asarray(jsq.vmin),
-                                          np.asarray(jsq.vdiff)))
+                                          np.asarray(jsq.vdiff),
+                                          device="cpu"))
     p.add(base[:3000])
     p.add(base[3000:])
     assert p.ntotal == N and p.dim == D
@@ -222,7 +224,7 @@ def test_flat_sq_save_load_both_ways(data, tmp_path):
     np.testing.assert_array_equal(np.asarray(j2._codes_s8),
                                   np.asarray(jidx._codes_s8))
     jidx.save(str(tmp_path / "j.npz"))
-    p2 = FlatSQIndex.load(str(tmp_path / "j.npz"))
+    p2 = FlatSQIndex.load(str(tmp_path / "j.npz"), device="cpu")
     assert p2.mode == jidx.mode and p2.sq.rounding == jidx.sq.rounding
     d1, i1 = p.search(q[:8], 5)
     d2, i2 = p2.search(q[:8], 5)
@@ -242,7 +244,7 @@ def pca_data():
 def test_pca_train_matches_up_to_sign(pca_data):
     x = pca_data
     j = JPCA.train(x, 6)
-    p = PCA.train(x, 6)
+    p = PCA.train(x, 6, device="cpu")
     jc = np.asarray(j.components)
     pc = p.components.numpy()
     sign = np.sign(np.sum(jc * pc, axis=1, keepdims=True))
@@ -259,7 +261,8 @@ def test_pca_project_carried(pca_data, whiten):
     x = pca_data
     j = JPCA.train(x, 6, whiten=whiten)
     p = convert.pca_from_numpy(np.asarray(j.mean), np.asarray(j.components),
-                               np.asarray(j.eigenvalues), whiten)
+                               np.asarray(j.eigenvalues), whiten,
+                               device="cpu")
     assert (p.in_dim, p.out_dim) == (32, 6)
     y = p.project(x[:200]).numpy()
     np.testing.assert_allclose(y, np.asarray(j.project(x[:200])), rtol=1e-5,
@@ -276,7 +279,7 @@ def test_pca_save_load_both_ways(pca_data, tmp_path):
     x = pca_data
     j = JPCA.train(x, 4, whiten=True)
     j.save(str(tmp_path / "j.npz"))
-    p = PCA.load(str(tmp_path / "j.npz"))
+    p = PCA.load(str(tmp_path / "j.npz"), device="cpu")
     assert p.whiten
     np.testing.assert_allclose(p.project(x[:10]).numpy(),
                                np.asarray(j.project(x[:10])), rtol=1e-5,
