@@ -7,7 +7,8 @@
    precision; builds the CUDA kernels from csrc/ (timed) and prints each
    kernel's registers and spills (ptxas) and, where the toolkit has
    cuobjdump, the count of each scoring instruction class in its SASS
-   (IMMA / IGMMA: int8 tensor cores; IDP4A: dp4a on the CUDA cores).
+   (IMMA / IGMMA: int8 tensor cores; IDP4A: dp4a on the CUDA cores);
+   `ivf_page` must show IGMMA and no IDP4A.
 2. Kernel against twin on seeded random inputs: both ADC kernels and
    their plain PyTorch twins (Npad = 65,536, B = 1,024, D = 128, M = 8,
    K = 256), then the decode kernel at every smaller segment size
@@ -30,15 +31,18 @@
 7. IVF-ADC at the reference operating point (coarseK 8192, m 16, K 256,
    opq/src/IVFOPQ.cpp:56-63) on the same 1M base, queries and ground
    truth: the `ivf_page` kernel against its twin on seeded random inputs
-   (pad rows, masked segments, Bpad > B); IVFADCIndex.train on 262,144
+   (pad rows, masked segments, Bpad > B), every slot live and with the
+   last 4 of 48 slots fill slots (n_live 44); IVFADCIndex.train on 262,144
    vectors (10 + 10 iterations) -> build (codes/s) -> search_fast at
    B = 256, k = 10, nprobe 8 / 16 / 64 over 2,048 queries -> the reference
    engine search() at nprobe 16. Asserts: the kernel launched, no page
    dropped, ids in [0, n) or -1 without duplicates, finite distances,
    |recall@10(search_fast) - recall@10(search)| <= 1.0 point at nprobe 16.
    Then the kernel against its twin on one nprobe-16 batch's own
-   arguments, and times (CUDA events) of search_fast, search() and the
-   kernel beside its twin.
+   arguments (n_live as search_fast passes it), and times (CUDA events)
+   of search_fast, search() and the kernel beside its twin; the kernel
+   also on one batch's arguments at nprobe 8 and 64, each with its live
+   slot count.
 8. The int8 SQ lane (BASELINE config 1) on the same base and queries,
    L2-normalised: exact ground truth (FlatIndex, 2,048 queries) ->
    ScalarQuantizer.train / encode on the card (codes/s) ->
@@ -64,13 +68,15 @@
    the profiler's hooks slow the host side of what runs after it).
    Each kernel's bound at each path's shape: the larger of the bytes it
    must move (each input read once, each output written once) over 3.35
-   TB/s and its int8 operations (2 per multiply-add; IVF: live pages only)
-   over 1,979 TOP/s, the H100 SXM data sheet's rates; and its time's share
-   of that bound. One JSON line describing the three kernels (launches
-   summed over the paths that run each, max_abs_err the worst of its
-   comparisons, ms / bound at the flat path's shape for the ADC kernels,
-   every path under by_path; no one PyTorch call computes packed segment
-   minima, so library_ms is null) and, last, the device line.
+   TB/s and its int8 operations (2 per multiply-add; IVF: the n_live live
+   page slots only) over 1,979 TOP/s, the H100 SXM data sheet's rates;
+   and its time's share of that bound. One JSON line describing the three
+   kernels (launches summed over the paths that run each, max_abs_err the
+   worst of its comparisons, ms / bound at the flat path's shape for the
+   ADC kernels and at the nprobe-16 batch for `ivf_page`, every path under
+   by_path, `ivf_page` at each nprobe under by_nprobe with its live slot
+   count; no one PyTorch call computes packed segment minima, so
+   library_ms is null) and, last, the device line.
 
 Every ADC kernel-against-twin check demands segpack and tiletop bitwise
 equal, except that a row whose norm/qs lies within 1e-4 of a half-integer
@@ -162,15 +168,22 @@ def adc_bound(args, cached: bool) -> dict:
     return bound(2.0 * npad * d * bpad, nbytes(*args[:n_in]) + out)
 
 
+def live_slots(args) -> int:
+    """The live page slots of an `ivf_page` call: its n_live argument
+    (capped at sel's length), or every slot where it has none."""
+    n_slots = args[5].shape[0]
+    if len(args) < 9 or args[8] is None:
+        return n_slots
+    return min(int(args[8]), n_slots)
+
+
 def ivf_bound(args) -> dict:
-    """Bound of one `ivf_page` call, counting the live page slots only
-    (sel lists the probed pages in ascending order, then repeats page 0 in
-    its fill slots): their cache rows and norms, coarse terms and minima,
-    plus the queries."""
-    q2s, _, dec8_t, _, _, sel, lp, seg = args
+    """Bound of one `ivf_page` call, counting the live page slots only:
+    their cache rows and norms, coarse terms and minima, plus the
+    queries. The kernel skips the fill slots past n_live."""
+    q2s, _, dec8_t, _, _, sel, lp, seg = args[:8]
     bpad, d = q2s.shape
-    s = sel.cpu()
-    n_live = 1 + int((s[1:] > s[:-1]).sum())
+    n_live = live_slots(args)
     mins = n_live * (lp // seg) * bpad * 4
     return bound(2.0 * n_live * lp * d * bpad,
                  n_live * lp * (d + 4) + 2 * mins + nbytes(q2s, sel))
@@ -220,17 +233,22 @@ def kernel_name(mangled: str) -> str | None:
 
 
 def ptxas_report(log: str) -> dict:
-    """{kernel: 'N registers, spill stores/loads'} from the build log."""
+    """{kernel: 'N registers, spill stores/loads'} from the build log,
+    with any ptxas performance warning about the kernel appended."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
+        regs = re.search(r"Used (\d+) registers", line)
         if m:
             name = kernel_name(m.group(1))
+        elif "Performance Loss" in line:
+            fn = re.search(r"function '(\S+)'", line)
+            key = kernel_name(fn.group(1)) if fn else name
+            out[key] = f"{out.get(key, '')}; {line.strip()}"
         elif name and "spill" in line:
             out[name] = line.strip()
-        elif name and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            out[name] = f"{regs} registers, {out.get(name, '')}"
+        elif name and regs:
+            out[name] = f"{regs.group(1)} registers, {out.get(name, '')}"
     return out
 
 
@@ -590,9 +608,10 @@ def phase_ivf(base_dev, q_dev, gt) -> dict:
     return res
 
 
-def main_path_ivf_args(idx, q_dev):
-    """The ivf_page kernel's arguments in one nprobe-16 search_fast batch,
-    recorded where the wrapper validates them before its launch."""
+def main_path_ivf_args(idx, q_dev, nprobe: int = IVF_REF_NPROBE):
+    """The ivf_page kernel's arguments (n_live included) in one search_fast
+    batch at nprobe, recorded where the wrapper validates them before its
+    launch."""
     from cvt_tpu_torch.ops.kernels import ivf_scan as V
     seen = []
     check = V._check_launch
@@ -602,23 +621,27 @@ def main_path_ivf_args(idx, q_dev):
         check(*args)
     V._check_launch = record
     try:
-        idx.search_fast(q_dev[:IVF_B], K, nprobe=IVF_REF_NPROBE)
+        idx.search_fast(q_dev[:IVF_B], K, nprobe=nprobe)
     finally:
         V._check_launch = check
     return list(seen[0])
 
 
-def phase_ivf_timing(idx, q_dev, args, reps: int) -> dict:
-    """Step 7's CUDA-event times at the IVF path's shapes."""
+def phase_ivf_timing(idx, q_dev, args_by_nprobe, reps: int) -> dict:
+    """Step 7's CUDA-event times at the IVF path's shapes: search_fast and
+    the kernel at each nprobe, search() and the twin at nprobe 16."""
     from cvt_tpu_torch.ops.kernels import ivf_scan as V
     q = q_dev[:IVF_B]
     out = {f"fast_{p}_ms": cuda_ms(lambda: idx.search_fast(q, K, nprobe=p),
                                    reps) for p in IVF_NPROBES}
     out["ref_ms"] = cuda_ms(lambda: idx.search(q, K, nprobe=IVF_REF_NPROBE),
                             reps)
-    out["ivf_page_ms"] = cuda_ms(lambda: V.ivf_pages_segmin(*args), reps)
-    out["ivf_page_plain_ms"] = cuda_ms(
-        lambda: V.ivf_pages_segmin_plain(*args), 2)
+    for p, args in args_by_nprobe.items():
+        out[f"ivf_page_{p}_ms"] = cuda_ms(
+            lambda: V.ivf_pages_segmin(*args), reps)
+    out["ivf_page_ms"] = out[f"ivf_page_{IVF_REF_NPROBE}_ms"]
+    out["ivf_page_plain_ms"] = cuda_ms(lambda: V.ivf_pages_segmin_plain(
+        *args_by_nprobe[IVF_REF_NPROBE]), 2)
     return out
 
 
@@ -994,9 +1017,11 @@ def main() -> int:
             print(f"  ptxas {name}: {line}")
     sass = sass_classes(stale)
     for name, counts in sass.items():
-        if "adc_segmin" in name:
+        if "adc_segmin" in name or "ivf_page" in name:
             print(f"  SASS {name}: " + ", ".join(
                 f"{c} {n}" for c, n in counts.items()))
+        if "ivf_page" in name:
+            assert counts["IGMMA"] > 0 and counts["IDP4A"] == 0, name
     if not sass:
         print("  SASS: cuobjdump not found; instruction classes not read")
 
@@ -1015,6 +1040,10 @@ def main() -> int:
     ivf_rand = compare_ivf_kernel(random_ivf_args(D, 200))
     print(f"kernel vs twin, random inputs, S=48 pages B=200 (Bpad 256): "
           f"ivf_page max|diff| {ivf_rand['max_abs_err']} {stamp}")
+    ivf_rand_live = compare_ivf_kernel(random_ivf_args(D, 200) + [
+        torch.tensor([44], dtype=torch.int32, device=DEV)])
+    print(f"kernel vs twin, random inputs, S=48 pages B=200, n_live 44: "
+          f"ivf_page max|diff| {ivf_rand_live['max_abs_err']} {stamp}")
 
     res = phase_main_path()
     idx, q_dev = res.pop("_index"), res.pop("_q")
@@ -1072,12 +1101,16 @@ def main() -> int:
           f"{iv['tail_len']} entries scanned by every reference query "
           f"{stamp}")
     print(f"launches during the IVF path: ivf_page {iv['launches']} {stamp}")
-    ivf_args = main_path_ivf_args(ivf_idx, q_dev)
+    ivf_by_p = {p: main_path_ivf_args(ivf_idx, q_dev, p)
+                for p in IVF_NPROBES}
+    ivf_args = ivf_by_p[IVF_REF_NPROBE]
+    assert ivf_args[8] is not None, "search_fast passed no n_live"
     ivf_cmp = compare_ivf_kernel(ivf_args)
     print(f"kernel vs twin, IVF main path's arguments (nprobe "
-          f"{IVF_REF_NPROBE}, B={IVF_B}, segpack {ivf_cmp['shape']}): "
-          f"ivf_page max|diff| {ivf_cmp['max_abs_err']} {stamp}")
-    itm = phase_ivf_timing(ivf_idx, q_dev, ivf_args, reps=10)
+          f"{IVF_REF_NPROBE}, B={IVF_B}, segpack {ivf_cmp['shape']}, "
+          f"n_live {live_slots(ivf_args)}): ivf_page max|diff| "
+          f"{ivf_cmp['max_abs_err']} {stamp}")
+    itm = phase_ivf_timing(ivf_idx, q_dev, ivf_by_p, reps=10)
     for p in IVF_NPROBES:
         ms = itm[f"fast_{p}_ms"]
         print(f"IVF search_fast 1M, B={IVF_B}, nprobe {p}: {ms:.3f} "
@@ -1087,9 +1120,15 @@ def main() -> int:
     print(f"ivf_page at the nprobe-{IVF_REF_NPROBE} batch: kernel "
           f"{itm['ivf_page_ms']:.3f} ms, twin {itm['ivf_page_plain_ms']:.3f}"
           f" ms {stamp}")
-    ivf_b = share(itm["ivf_page_ms"], ivf_bound(ivf_args))
-    print_bound("ivf_page", f"the nprobe-{IVF_REF_NPROBE} batch (B "
-                f"{IVF_B}, {ivf_args[5].shape[0]} page slots)", ivf_b, stamp)
+    ivf_bp = {}
+    for p, args in ivf_by_p.items():
+        ivf_bp[p] = dict(share(itm[f"ivf_page_{p}_ms"], ivf_bound(args)),
+                         live_slots=live_slots(args),
+                         slots=args[5].shape[0])
+        print_bound("ivf_page", f"the nprobe-{p} batch (B {IVF_B}, "
+                    f"{ivf_bp[p]['live_slots']} live of "
+                    f"{ivf_bp[p]['slots']} page slots)", ivf_bp[p], stamp)
+    ivf_b = ivf_bp[IVF_REF_NPROBE]
 
     sq = run_sq(base_dev, q_dev, stamp)
     sv = run_serving(idx, q_dev, gt, ids_ref, base_dev, stamp)
@@ -1152,9 +1191,14 @@ def main() -> int:
               split_ms=split["adc_segmin_cached"],
               sass=sass_of("adc_segmin_cached_kernel")),
         entry("ivf_page", IVF_SRC, "cvt_tpu/ops/pallas/ivf_scan.py:82",
-              iv["launches"], ivf_cmp["max_abs_err"], itm["ivf_page_ms"],
-              itm["ivf_page_plain_ms"], ivf_b,
-              by_path={"ivf": path(ivf_b)}, sass=sass_of("ivf_page_kernel"))]
+              iv["launches"],
+              max(ivf_cmp["max_abs_err"], ivf_rand["max_abs_err"],
+                  ivf_rand_live["max_abs_err"]),
+              itm["ivf_page_ms"], itm["ivf_page_plain_ms"], ivf_b,
+              live_slots=ivf_b["live_slots"], by_path={"ivf": path(ivf_b)},
+              by_nprobe={str(p): dict(path(b), live_slots=b["live_slots"])
+                         for p, b in ivf_bp.items()},
+              sass=sass_of("ivf_page_kernel"))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

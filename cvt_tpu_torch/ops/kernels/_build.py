@@ -35,9 +35,9 @@ _SIGNATURES = {
     # dec8_t, norm_col, q2s, qs, npad, d, bpad, n_valid, tile_n, seg,
     # vcap, ibase, segpack, tiletop, stream
     "cvt_adc_segmin_cached": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P, _P],
-    # sel, qs, dec8_t, nrm_col, cip, q2s, n_sel, n_rows, d, bpad, lp, seg,
-    # marker, segpack, stream
-    "cvt_ivf_pages_segmin": [_P] * 6 + [_I] * 7 + [_P, _P],
+    # sel, n_live, qs, dec8_t, nrm_col, cip, q2s, n_sel, n_rows, d, bpad,
+    # lp, seg, marker, segpack, stream
+    "cvt_ivf_pages_segmin": [_P] * 7 + [_I] * 7 + [_P, _P],
 }
 
 

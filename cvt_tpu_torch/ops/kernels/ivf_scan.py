@@ -17,11 +17,14 @@ that ranks them below every real candidate, so the union scan returns the
 probed lists' top-k and not the batch union's.
 
 Phase 1 is the hand-written CUDA kernel `ivf_page_kernel`
-(`csrc/ivf_scan.cu`) for tensors on the card and its plain PyTorch twin
-`ivf_pages_segmin_plain` for tensors on the CPU; the wrapper
-`ivf_pages_segmin` counts its launches in `.launches` and never falls back
-from one to the other. Phase 2 (PyTorch) takes the k+slack best segments
-per query and rescores their rows exactly in f32 from an int16 decode.
+(`csrc/ivf_scan.cu`, int8 tensor cores) for tensors on the card and its
+plain PyTorch twin `ivf_pages_segmin_plain` for tensors on the CPU; the
+wrapper `ivf_pages_segmin` counts its launches in `.launches` and never
+falls back from one to the other. `sel` pads the probed pages to a fixed
+length with fill slots; both skip the slots past `n_live` (a one-element
+tensor, read on the device) and write INT32_MAX there. Phase 2 (PyTorch)
+takes the k+slack best segments per query and rescores their rows exactly
+in f32 from an int16 decode.
 
 Integer packing (key = (ip + norm_i + cip_i) * seg + lane) and its bounds
 are those of `_ivf_pack_caps`. The clips run in float32, so a pad row's
@@ -37,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from cvt_tpu_torch.ops.kernels import _build
-from cvt_tpu_torch.ops.kernels.adc_scan import (_fold_queries,
+from cvt_tpu_torch.ops.kernels.adc_scan import (SMEM_LIMIT, _fold_queries,
                                                 _quantize_codebooks)
 from cvt_tpu_torch.ops.topk import top_k_smallest
 
@@ -45,6 +48,7 @@ BIG = 3.4e38
 _ROWS = 128                  # rows per CUDA block: lp must be a multiple
 _KERNEL_SEGS = (16, 32, 64, 128)
 _TWIN_PAGES = 64             # pages the twin scores per step (bounds memory)
+I32_MAX = 2 ** 31 - 1        # the key of a skipped slot or page
 
 
 def _ivf_pack_caps(seg: int, d: int) -> tuple[int, int]:
@@ -79,16 +83,18 @@ def _clip_i32(x: torch.Tensor, qs, mk: float) -> torch.Tensor:
 
 
 def ivf_pages_segmin_plain(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int,
-                           seg: int):
+                           seg: int, n_live=None):
     """Plain PyTorch twin of the `ivf_page` kernel (same arguments and
     output); runs on any device.
 
     q2s [Bpad, D] int8 folded queries, qs their float32 scale (one
     element); dec8_t [D, N'] int8 cell-sorted residual cache; nrm_col
     [N', 1] f32 (BIG on pad rows); cip [S*spt, Bpad] f32 per-segment
-    coarse terms (BIG = masked); sel [S] int32 selected page ids. Returns
-    segpack [S*spt, Bpad] int32: for slot i and segment s of page sel[i],
-    min over the segment's rows of (ip + norm_i + cip_i) * seg + row % seg.
+    coarse terms (BIG = masked); sel [S] int32 selected page ids; n_live
+    [1] int32, the live slots (None: all S). Returns segpack [S*spt, Bpad]
+    int32: for live slot i and segment s of page sel[i], min over the
+    segment's rows of (ip + norm_i + cip_i) * seg + row % seg; INT32_MAX
+    for every segment of a slot past n_live or of a page id out of range.
 
     The scores are float32 products of int8 operands: every partial sum is
     an integer below 127^2 * D < 2^24, so the int32 cast is exact."""
@@ -104,7 +110,10 @@ def ivf_pages_segmin_plain(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int,
     lane = torch.arange(lp, device=q2s.device, dtype=torch.int32) % seg
     cip_sh = _clip_i32(cip, qs, mk) * seg                        # [S*spt, Bpad]
     out = torch.empty((s * spt, bpad), dtype=torch.int32, device=q2s.device)
-    sel_l = sel.long()
+    ok = (sel >= 0) & (sel < n_pages)
+    if n_live is not None:
+        ok &= torch.arange(s, device=sel.device) < n_live.to(sel.device)
+    sel_l = torch.where(ok, sel, 0).long()
     for p0 in range(0, s, _TWIN_PAGES):
         pg = sel_l[p0:p0 + _TWIN_PAGES]
         c = pg.shape[0]
@@ -114,18 +123,31 @@ def ivf_pages_segmin_plain(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int,
         mins = (ip * seg + base[:, :, None]).view(c, spt, seg, bpad).amin(2)
         rows = slice(p0 * spt, (p0 + c) * spt)
         out[rows] = mins.reshape(c * spt, bpad) + cip_sh[rows]
-    return out
+    return torch.where(ok.repeat_interleave(spt)[:, None], out, I32_MAX)
 
 
-def _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int,
-                  seg: int) -> None:
+def _page_smem_bytes(d: int, nst: int) -> int:
+    """Dynamic shared memory of one `ivf_page` block with nst 64-query
+    tiles in its ring: `page_smem_bytes` of csrc/ivf_scan.cu (1,024 bytes
+    of alignment slack, a 128-row tile and the query tiles, D in 128-byte
+    panels, and the 128-entry key base column). The kernel takes three
+    tiles where they fit, else two."""
+    panels = -(-d // 128)
+    return 1024 + 128 * 128 * panels + nst * 64 * 128 * panels + 128 * 4
+
+
+def _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int, seg: int,
+                  n_live=None) -> None:
     """Validate what the kernel takes before its pointers are passed."""
     bpad, d = q2s.shape
     dev = q2s.device
     tensors = dict(q2s=q2s, qs=qs, dec8_t=dec8_t, nrm_col=nrm_col, cip=cip,
                    sel=sel)
     dtypes = dict(q2s=torch.int8, qs=torch.float32, dec8_t=torch.int8,
-                  nrm_col=torch.float32, cip=torch.float32, sel=torch.int32)
+                  nrm_col=torch.float32, cip=torch.float32, sel=torch.int32,
+                  n_live=torch.int32)
+    if n_live is not None:
+        tensors["n_live"] = n_live
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q2s on {dev}")
@@ -135,9 +157,15 @@ def _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int,
             raise ValueError(f"{name} must be contiguous and 4-byte aligned")
     if qs.numel() != 1:
         raise ValueError("qs must hold one float32 scale")
+    if n_live is not None and n_live.numel() != 1:
+        raise ValueError("n_live must hold one int32 count")
     if bpad % 128 or d % 4:
         raise ValueError(f"q2s [{bpad}, {d}]: need Bpad % 128 == 0 and "
                          f"D % 4 == 0")
+    smem = _page_smem_bytes(d, 2)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"D={d} needs {smem} bytes of shared memory per "
+                         f"block, over the {SMEM_LIMIT}-byte (227 KB) limit")
     if seg not in _KERNEL_SEGS or lp % _ROWS:
         raise ValueError(f"kernel takes seg in {_KERNEL_SEGS} and lp a "
                          f"multiple of {_ROWS}; got seg={seg}, lp={lp}")
@@ -149,19 +177,20 @@ def _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int,
                          f"sel [S]; got {tuple(cip.shape)}")
 
 
-def ivf_pages_segmin(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int, seg: int):
+def ivf_pages_segmin(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int, seg: int,
+                     n_live=None):
     """Phase 1 over the selected pages -> segpack [S*spt, Bpad] int32.
 
     Arguments as `ivf_pages_segmin_plain`. Tensors on the CPU run the
     twin; tensors on the card launch `ivf_page_kernel` (counted in
-    `ivf_pages_segmin.launches`); any other device raises. Page ids in
-    `sel` must lie in [0, N'/lp): `ivf_union_search` builds them so."""
+    `ivf_pages_segmin.launches`), which reads n_live on the device, so
+    nothing waits on the host; any other device raises."""
     if q2s.device.type == "cpu":
         return ivf_pages_segmin_plain(q2s, qs, dec8_t, nrm_col, cip, sel,
-                                      lp, seg)
+                                      lp, seg, n_live)
     if q2s.device.type != "cuda":
         raise ValueError(f"no ivf_page kernel for {q2s.device}")
-    _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp, seg)
+    _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp, seg, n_live)
     bpad, d = q2s.shape
     _, marker = _ivf_pack_caps(seg, d)
     s = sel.shape[0]
@@ -170,7 +199,8 @@ def ivf_pages_segmin(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int, seg: int):
     lib = _build.load()
     with torch.cuda.device(q2s.device):
         _build.check(lib, lib.cvt_ivf_pages_segmin(
-            sel.data_ptr(), qs.data_ptr(), dec8_t.data_ptr(),
+            sel.data_ptr(), None if n_live is None else n_live.data_ptr(),
+            qs.data_ptr(), dec8_t.data_ptr(),
             nrm_col.data_ptr(), cip.data_ptr(), q2s.data_ptr(), s,
             dec8_t.shape[1], d, bpad, lp, seg, marker, segpack.data_ptr(),
             torch.cuda.current_stream().cuda_stream), "ivf_pages_segmin")
@@ -195,9 +225,10 @@ def coarse_probes(q, centroids, nprobe: int):
 
 def _select_pages(page_probed: torch.Tensor, s_max: int):
     """jnp.nonzero(page_probed, size=s_max, fill_value=0) and its count:
-    the probed page ids in ascending order, then page 0 in the fill slots.
-    A stable sort puts the probed pages first without a host sync."""
-    n_live = torch.sum(page_probed)
+    the probed page ids in ascending order, then page 0 in the fill slots,
+    and the count as a one-element int32, the kernel's n_live. A stable
+    sort puts the probed pages first without a host sync."""
+    n_live = torch.sum(page_probed, dtype=torch.int32).reshape(1)
     order = torch.sort((~page_probed).to(torch.int32), stable=True).indices
     slot = torch.arange(s_max, device=page_probed.device)
     live = slot < n_live
@@ -243,7 +274,7 @@ def ivf_union_search(q, centroids, dec8_t, dec16_rm, srow16, nrm_col,
     page_probed = seg_probed.view(n_pages, spt).any(1)
     s_max = min(max_pages, n_pages)
     sel, live, n_live = _select_pages(page_probed, s_max)
-    n_dropped = torch.clamp_min(n_live - s_max, 0)
+    n_dropped = torch.clamp_min(n_live[0] - s_max, 0)
 
     # ---- per-segment coarse correction rows [S*spt, B] -------------------
     sel_segs = sel[:, None].long() * spt + torch.arange(spt, device=dev)
@@ -268,15 +299,18 @@ def ivf_union_search(q, centroids, dec8_t, dec16_rm, srow16, nrm_col,
     # the kernel's block spans the padded batch: padded query columns are
     # masked and dropped by segpack.T[:b]
     cip_pad = F.pad(cipz, (0, q2s.shape[0] - b), value=BIG)
+    # the fill slots are skipped: their keys (INT32_MAX) rank after every
+    # live segment's, valid or masked, so the k+slack winners below are
+    # those of a scan of every slot
     segpack = ivf_pages_segmin(q2s, qs.reshape(1), dec8_t, nrm_col,
-                               cip_pad.contiguous(), sel, lp, seg)
+                               cip_pad.contiguous(), sel, lp, seg, n_live)
 
     # ---- phase 2: exact f32 rescore of the winning segments --------------
     n_take = min(k + slack, segpack.shape[0])
     # f32 keys, as cvt_tpu ranks them; nearby large keys tie in f32 and the
     # stable sort breaks ties toward the lower index like lax.top_k
     _, seg_sel = top_k_smallest(segpack.T[:b].float(), n_take)  # [B, S2]
-    # fill slots duplicate page 0 and must not re-enter here
+    # fill slots must not re-enter here
     slot_of = seg_sel // spt
     slot_live = (slot_of < n_live)[:, :, None].expand(b, n_take, seg)
     slot_live = slot_live.reshape(b, n_take * seg)

@@ -5,8 +5,9 @@ On the CPU the kernel wrapper runs its plain PyTorch twin, so these tests
 hold the twin (and everything around it) against the TPU kernel.
 Tolerances:
   * integer stages bitwise: _ivf_pack_caps, segpack (the twin against the
-    Pallas kernel on the same q2s, qs, cache, norms, cip and sel), every
-    array of build_page_layout;
+    Pallas kernel on the same q2s, qs, cache, norms, cip and sel; with a
+    live count n_live, its live slots against the Pallas kernel's and its
+    fill slots INT32_MAX), every array of build_page_layout;
   * ivf_union_search: distances rtol 1e-5 (the coarse products and the
     rescore sum in another order), ids equal except at near-ties (another
     entry of the reference's row within 1e-4 relative of that distance, or
@@ -105,6 +106,55 @@ def test_segmin_twin_matches_pallas_kernel(d, b):
     masked = cip[SPT:2 * SPT] >= J.BIG / 2
     np.testing.assert_array_equal(got[SPT:2 * SPT][masked], top[masked])
     assert got.max() < 2 ** 31 - 1
+
+
+@pytest.mark.parametrize("n_live", [0, 1, 6, 7])      # S = 7
+def test_segmin_twin_skips_fill_slots(n_live):
+    """Slots past n_live are fill slots: the twin writes INT32_MAX there
+    and the Pallas kernel's keys in every live slot. A page id out of
+    range (negative or past the cache) reads nothing either."""
+    d, b = 64, 200
+    q2s, qs, dec8_t, nrm_col, cip, sel = _page_inputs(d, b, seed=n_live)
+    want = np.asarray(J._ivf_pages_segmin(
+        jnp.asarray(q2s), jnp.float32(qs), jnp.asarray(dec8_t),
+        jnp.asarray(nrm_col), jnp.asarray(cip), jnp.asarray(sel), LP, SEG,
+        True))
+    args = [t(q2s), torch.tensor([qs]), t(dec8_t), t(nrm_col), t(cip),
+            t(sel), LP, SEG, torch.tensor([n_live], dtype=torch.int32)]
+    got = T.ivf_pages_segmin(*args).numpy()
+    live = n_live * SPT
+    np.testing.assert_array_equal(got[:live], want[:live])
+    assert (got[live:] == T.I32_MAX).all()
+    args[5] = t(np.array([3, -1, 0, 6, 1, 0, 0], np.int32))
+    off = T.ivf_pages_segmin(*args).numpy()
+    bad = np.repeat(np.array([0, 1, 0, 1, 0, 0, 0], bool), SPT)
+    assert (off[bad] == T.I32_MAX).all()
+    np.testing.assert_array_equal(off[~bad], got[~bad])
+
+
+@pytest.mark.parametrize("d,nst,smem,fits", [
+    (32, 3, 42_496, True), (128, 3, 42_496, True),
+    (512, 3, 165_376, True), (896, 3, 288_256, False),
+    (896, 2, 230_912, True), (900, 2, 263_680, False),
+    (1024, 2, 263_680, False)])
+def test_page_smem_budget(d, nst, smem, fits):
+    """The ivf_page block must fit sm_90's 227 KB opt-in with at least two
+    query tiles in its ring: D up to 896 (two tiles past D = 640). The
+    wrapper refuses a larger D before launch."""
+    assert T._page_smem_bytes(d, nst) == smem
+    assert (smem <= T.SMEM_LIMIT) == fits
+    if nst == 3:
+        return
+    q2s = torch.zeros((128, d), dtype=torch.int8)
+    cip = torch.zeros((LP // 16, 128))
+    args = (q2s, torch.ones(1), torch.zeros((d, LP), dtype=torch.int8),
+            torch.zeros((LP, 1)), cip, torch.zeros(1, dtype=torch.int32),
+            LP, 16, torch.ones(1, dtype=torch.int32))
+    if fits:
+        T._check_launch(*args)
+    else:
+        with pytest.raises(ValueError, match="227 KB"):
+            T._check_launch(*args)
 
 
 def test_page_layout_matches_reference():

@@ -182,13 +182,14 @@ def test_loaded_index_lands_on_the_card(card, tmp_path):
     assert torch.equal(i.cpu(), idx.search(q, 10)[1])
 
 
-def _page_args(dev, d=128, b=200, seed=0):
-    """Seeded ivf_page arguments over 6 pages of 512 rows (seg 32): BIG
-    pad rows and a page of them, BIG-masked cip entries, masked padded
-    query columns (Bpad > B) and a repeated fill page in sel."""
+def _page_args(dev, d=128, b=200, seg=32, seed=0):
+    """Seeded ivf_page arguments over 6 pages of 512 rows: BIG pad rows
+    and a page of them (page 4, slot 1), BIG-masked cip entries, masked
+    padded query columns (Bpad > B) and a repeated fill page in sel."""
     g = torch.Generator().manual_seed(seed)
-    nvcap, _ = V._ivf_pack_caps(32, d)
-    lp, spt, n_pages = 512, 16, 6
+    nvcap, _ = V._ivf_pack_caps(seg, d)
+    lp, n_pages = 512, 6
+    spt = lp // seg
     bpad = -(-b // 128) * 128
     qs = torch.rand((1,), generator=g) + 0.5
     dec8_t = torch.randint(-127, 128, (d, n_pages * lp), generator=g,
@@ -206,17 +207,64 @@ def _page_args(dev, d=128, b=200, seed=0):
     return [x.to(dev) for x in (q2s, qs, dec8_t, nrm, cip, sel)]
 
 
-@pytest.mark.parametrize("d,b", [(64, 128), (128, 200)])
-def test_ivf_page_kernel_equals_twin(card, d, b):
-    args = _page_args(card, d, b)
+def _ivf_packable(seg: int, d: int) -> bool:
+    try:
+        V._ivf_pack_caps(seg, d)
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("seg,d,b", [
+    (seg, d, b) for seg in (16, 32, 64, 128) for d in (36, 64, 128, 256)
+    for b in (100, 200, 300)                 # Bpad 128 / 256 / 384
+    if _ivf_packable(seg, d)])               # D 256 needs seg <= 64
+def test_ivf_page_kernel_equals_twin(card, seg, d, b):
+    """The tensor-core page scan against its twin, bitwise, at every
+    segment size, D not a multiple of 32 (36), one and two K panels, and
+    one to six query tiles."""
+    args = _page_args(card, d, b, seg)
     before = V.ivf_pages_segmin.launches
-    got = V.ivf_pages_segmin(*args, 512, 32)
+    got = V.ivf_pages_segmin(*args, 512, seg)
     torch.cuda.synchronize()
     assert V.ivf_pages_segmin.launches == before + 1
-    want = V.ivf_pages_segmin_plain(*args, 512, 32)
+    want = V.ivf_pages_segmin_plain(*args, 512, seg)
     assert torch.equal(got, want)
     # the page of pad rows under masked cip carries both float32 markers
-    assert int(got[16:32].max()) >= 2 * 32 * 32_522_144 - 127 ** 2 * d * 32
+    _, marker = V._ivf_pack_caps(seg, d)
+    spt = 512 // seg
+    floor = (2 * int(V._marker_f32(marker)) - 127 ** 2 * d) * seg
+    assert int(got[spt:2 * spt].max()) >= floor
+
+
+@pytest.mark.parametrize("n_live", [0, 1, 6, 7])        # S = 7
+def test_ivf_page_kernel_skips_fill_slots(card, n_live):
+    """Slots past n_live and page ids out of range (slot 1: -1, slot 3:
+    past the cache) write INT32_MAX in the kernel as in its twin; the rest
+    are the full scan's keys."""
+    args = _page_args(card)
+    full = V.ivf_pages_segmin_plain(*args, 512, 32)
+    args[5] = torch.tensor([3, -1, 0, 6, 1, 0, 0], dtype=torch.int32,
+                           device=card)
+    live = torch.tensor([n_live], dtype=torch.int32, device=card)
+    got = V.ivf_pages_segmin(*args, 512, 32, live)
+    torch.cuda.synchronize()
+    assert torch.equal(got, V.ivf_pages_segmin_plain(*args, 512, 32, live))
+    skip = torch.tensor([s >= n_live or s in (1, 3) for s in range(7)],
+                        device=card).repeat_interleave(16)
+    assert bool((got[skip] == V.I32_MAX).all())
+    assert torch.equal(got[~skip], full[~skip])
+
+
+def test_ivf_page_two_tile_ring(card):
+    """D = 896, the largest D whose block fits 227 KB, and then only with
+    two query tiles in the ring (seg 16: the int32 keys hold that D)."""
+    assert V._page_smem_bytes(896, 3) > V.SMEM_LIMIT
+    assert V._page_smem_bytes(896, 2) <= V.SMEM_LIMIT
+    args = _page_args(card, 896, 300, 16)
+    got = V.ivf_pages_segmin(*args, 512, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, V.ivf_pages_segmin_plain(*args, 512, 16))
 
 
 def test_ivf_wrapper_refuses_bad_inputs(card):
@@ -230,6 +278,20 @@ def test_ivf_wrapper_refuses_bad_inputs(card):
                            512, 32)
     with pytest.raises(ValueError):
         V.ivf_pages_segmin(q2s, qs, dec8_t, nrm, cip[:-16], sel, 512, 32)
+    with pytest.raises(TypeError):
+        V.ivf_pages_segmin(q2s, qs, dec8_t, nrm, cip, sel, 512, 32,
+                           torch.ones(1, dtype=torch.int64, device=card))
+    with pytest.raises(ValueError):
+        V.ivf_pages_segmin(q2s, qs, dec8_t, nrm, cip, sel, 512, 32,
+                           torch.ones(2, dtype=torch.int32, device=card))
+    wide = torch.zeros((128, 900), dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="227 KB"):      # D = 900 at seg 16
+        V.ivf_pages_segmin(wide, qs, torch.zeros((900, 512), dtype=torch.int8,
+                                                 device=card),
+                           torch.zeros((512, 1), device=card),
+                           torch.zeros((32, 128), device=card),
+                           torch.zeros(1, dtype=torch.int32, device=card),
+                           512, 16)
 
 
 def _assert_ids_match(d, i, cd, ci, rel=1e-4, atol=0.0):
