@@ -78,6 +78,35 @@
    count; no one PyTorch call computes packed segment minima, so
    library_ms is null) and, last, the device line.
 
+11. The tie-exact top-k (ops/topk.py) against the stable sort it
+   replaced, bitwise, values and ids, on the card at the paths' shapes
+   with heavy ties: the SQ search's chunk [8,192, 65,536] float32 (also
+   with +inf padding), the flat path's segment keys [8,192, 7,936] int32
+   with INT32_MAX fills and their float32 casts, for k = 1, 10 and N,
+   and the seed selection of vote-and-verify (largest 8 of [1,280,
+   16,384] bins, most tied at -1). Times of the sort and the selection
+   at each shape.
+12. The vocabulary tree with Hamming embedding at the reference's
+   default operating point (visual_index.h: W = 65,536 words,
+   hierarchical 256 x 256; the recipe of _bench_vocab5.py:159-221 on
+   synthetic_sift in place of extracted SIFT): 1,024 images x 512
+   descriptors (synthetic_sift(524,288, 128), seeded frames), train on
+   400,000 of them (iters 10), add and prepare every image, then
+   query_batch for 128 queries (128 noisy descriptors of every 8th image,
+   frames moved by one seeded similarity each) at probes 2, 8 and exact
+   (0), and at probes 8 with verify=10. Asserts: ids in range, finite
+   scores, recall@1 >= 0.90 against the source image at probes 8 with and
+   without verification, single queries agree with the batch, and the
+   index saved and loaded on the CPU answers 8 queries as the card (rank
+   by rank within rtol 1e-5, a rank whose score lies within 1e-5 of a
+   neighbour's may swap: float32 sums in another order; with
+   verification the top-1, the rest counted). The path launches none of
+   the three kernels: their counts, zeroed before it, stay 0.
+13. `python -m cvt_tpu_torch.cli vocab_tree_retriever` as a subprocess on
+   a FeatureDatabase (io/database.py) holding 8 indexed images and 8
+   query images, with --vocab_index at the phase's saved index: its
+   ranked names must equal the in-process query_batch's.
+
 Every ADC kernel-against-twin check demands segpack and tiletop bitwise
 equal, except that a row whose norm/qs lies within 1e-4 of a half-integer
 may move its key by seg (float32 summation order); such rows are counted
@@ -112,6 +141,16 @@ SEG_VARIANTS = (64, 32, 16, 8)
 # the serving front end (BASELINE config 5) on one card
 SERVE_B, KM_N, KM_K, CLI_STDIN_ROWS = 1024, 65_536, 256, 4
 BATCHER_BLOCKS = (1, 37, 256, 500)
+# the top-k repair's shapes: the SQ search's chunk, the flat fast path's
+# segment minima at 1M rows (7,936 segments of 128), the vote seeds of 128
+# queries x 10 verified candidates
+TOPK_SQ, TOPK_SEG, TOPK_BINS, TOPK_SEEDS = (8192, 65_536), (8192, 7936), \
+    (1280, 16_384), 8
+# the vocabulary tree at visual_index.h's default (BENCH_VOCAB5.md)
+VOCAB_W, VOCAB_IMAGES, VOCAB_PER_IMAGE, VOCAB_TRAIN = 65_536, 1024, 512, \
+    400_000
+VOCAB_EVERY, VOCAB_KQ, VOCAB_TOPK, VOCAB_VERIFY = 8, 128, 5, 10
+VOCAB_PROBES, VOCAB_CPU_Q, VOCAB_CLI_Q, VOCAB_RTOL = (2, 8, 0), 8, 8, 1e-5
 # H100 SXM data sheet: dense int8 tensor-core rate, HBM3 bandwidth
 PEAK_INT8_OPS, HBM_BYTES_PER_S = 1.979e15, 3.35e12
 SASS_CLASSES = ("IMMA", "IGMMA", "IDP4A")
@@ -888,6 +927,308 @@ def phase_kmeans(base_dev) -> dict:
     return {"max_abs_err": err, "objective_rel_err": obj_rel}
 
 
+def topk_cases():
+    """Seeded tie-heavy inputs at the top-k repair's shapes, on the card:
+    (name, x, largest, ks)."""
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    sq = torch.randint(0, 64, TOPK_SQ, generator=g, device=DEV).float()
+    padded = sq.clone()
+    padded[:, -TOPK_SQ[1] // 4:] = float("inf")   # a ragged chunk's tail
+    padded[torch.rand(TOPK_SQ, generator=g, device=DEV) < 0.1] = \
+        float("inf")
+    keys = ((torch.randint(0, 8, TOPK_SEG, generator=g, device=DEV) << 7)
+            | torch.randint(0, 4, TOPK_SEG, generator=g, device=DEV))
+    keys = keys.to(torch.int32)
+    keys[torch.rand(TOPK_SEG, generator=g, device=DEV) < 0.05] = 2 ** 31 - 1
+    bins = torch.full(TOPK_BINS, -1.0, device=DEV)
+    occupied = torch.rand(TOPK_BINS, generator=g, device=DEV) < 0.003
+    bins[occupied] = torch.randint(1, 4, TOPK_BINS, generator=g,
+                                   device=DEV).float()[occupied]
+    return [("SQ chunk f32", sq, False, (1, 10, TOPK_SQ[1])),
+            ("SQ chunk f32 +inf padded", padded, False,
+             (1, 10, TOPK_SQ[1])),
+            ("segment keys int32", keys, False, (1, 10, TOPK_SEG[1])),
+            ("segment keys f32 cast", keys.float(), False,
+             (1, 10, TOPK_SEG[1])),
+            ("vote bins f32, largest", bins, True, (TOPK_SEEDS,))]
+
+
+def phase_topk(stamp: str) -> dict:
+    """Step 11: the selection against the stable sort, bitwise, and the
+    two timed at each shape."""
+    from cvt_tpu_torch.ops import topk
+    out = {}
+    for name, x, largest, ks in topk_cases():
+        for k in ks:
+            def sort():
+                v, i = torch.sort(x, dim=-1, descending=largest, stable=True)
+                return v[..., :k], i[..., :k]
+
+            def select():
+                return (topk.top_k_largest if largest
+                        else topk.top_k_smallest)(x, k)
+            (v, i), (sv, si) = select(), sort()
+            if not (torch.equal(v, sv) and torch.equal(i, si)):
+                raise AssertionError(f"top-k differs from the stable sort: "
+                                     f"{name}, k {k}")
+            key = f"{name}, k {k}"
+            out[key] = {"sort_ms": cuda_ms(sort, 3),
+                        "select_ms": cuda_ms(select, 3)}
+            print(f"top-k {list(x.shape)} {key}: equal to the stable sort "
+                  f"(values and ids); sort {out[key]['sort_ms']:.3f} ms, "
+                  f"selection {out[key]['select_ms']:.3f} ms{' (k = N: the '
+                  'sort itself)' if k == x.shape[-1] else ''} {stamp}")
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def vocab_data():
+    """The vocabulary phase's seeded data: corpus descriptors [I, P, D]
+    and frames [I, P, 4], the 128 queries' descriptors and frames
+    [Q, KQ, D / 4], their source images, and the training sample."""
+    from cvt_tpu_torch.io import synthetic_sift
+    rng = np.random.default_rng(SEED)
+    n_img, per = VOCAB_IMAGES, VOCAB_PER_IMAGE
+    desc = synthetic_sift(n_img * per, D, seed=SEED).reshape(n_img, per, D)
+    frames = np.stack([rng.uniform(0, 1024, (n_img, per)),
+                       rng.uniform(0, 1024, (n_img, per)),
+                       rng.uniform(1.5, 8.0, (n_img, per)),
+                       rng.uniform(-np.pi, np.pi, (n_img, per))],
+                      -1).astype(np.float32)
+    src = np.arange(0, n_img, VOCAB_EVERY)
+    pick = np.stack([rng.choice(per, VOCAB_KQ, replace=False) for _ in src])
+    q = desc[src[:, None], pick] + rng.normal(0, 6.0, (len(src), VOCAB_KQ,
+                                                       D))
+    q = np.clip(q, 0, 255).astype(np.float32)
+    qf = frames[src[:, None], pick].copy()
+    for j in range(len(src)):                # one similarity per query
+        th = rng.uniform(-np.pi / 12, np.pi / 12)
+        s = rng.uniform(0.85, 1.15)
+        rot = s * np.array([[np.cos(th), -np.sin(th)],
+                            [np.sin(th), np.cos(th)]])
+        qf[j, :, :2] = (qf[j, :, :2] @ rot.T + rng.uniform(-50, 50, 2)
+                        + rng.normal(0, 0.5, (VOCAB_KQ, 2)))
+        qf[j, :, 2] *= s
+        qf[j, :, 3] = np.angle(np.exp(1j * (qf[j, :, 3] + th)))
+    train = rng.choice(n_img * per, VOCAB_TRAIN, replace=False)
+    return desc, frames, q, qf.astype(np.float32), src, train
+
+
+def rankings_agree(ids_a, sc_a, ids_b, sc_b, k: int,
+                   atol: float = 1e-7) -> int:
+    """The first k ranks of two [Q, >k] rankings agree: scores within
+    VOCAB_RTOL (plus atol), ids equal except where a score lies within
+    that of a neighbour's (float32 sums in another order may swap such a
+    pair). Raises on a disagreement; returns the count of excused ranks."""
+    sa, sb = np.asarray(sc_a), np.asarray(sc_b)
+    np.testing.assert_allclose(sb[:, :k], sa[:, :k], rtol=VOCAB_RTOL,
+                               atol=atol)
+    tol = VOCAB_RTOL * np.abs(sa) + atol
+    gap = np.abs(np.diff(sa, axis=1)) <= tol[:, 1:]
+    near = np.zeros(sa.shape, bool)
+    near[:, 1:] |= gap
+    near[:, :-1] |= gap
+    differ = np.asarray(ids_a)[:, :k] != np.asarray(ids_b)[:, :k]
+    if (differ & ~near[:, :k]).any():
+        raise AssertionError(f"rankings differ beyond near-ties: "
+                             f"{np.argwhere(differ & ~near[:, :k])}")
+    return int(differ.sum())
+
+
+def phase_vocab(stamp: str) -> dict:
+    """Step 12: the vocabulary-tree path through VocabHEIndex's public
+    methods; returns the phase's results with the index, queries and the
+    saved file's path for the CLI step."""
+    import tempfile
+    from cvt_tpu_torch.index import VocabHEIndex
+    from cvt_tpu_torch.ops.kernels import adc_scan as T
+    from cvt_tpu_torch.ops.kernels import ivf_scan as V
+    t_phase = time.perf_counter()
+    desc, frames, q, qf, src, train = vocab_data()
+    res = {"data_s": time.perf_counter() - t_phase}
+    T.adc_segmin.launches = T.adc_segmin_cached.launches = 0
+    V.ivf_pages_segmin.launches = 0
+    idx = VocabHEIndex(n_words=VOCAB_W, probes=8, device=DEV)
+    assert idx.hierarchical
+    t0 = time.perf_counter()
+    idx.train(torch.Generator().manual_seed(SEED),
+              desc.reshape(-1, D)[train], iters=10)
+    torch.cuda.synchronize()
+    res["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(VOCAB_IMAGES):
+        idx.add_image(desc[i], name=f"img_{i:04d}", geometries=frames[i])
+    torch.cuda.synchronize()
+    res["encode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.prepare()
+    torch.cuda.synchronize()
+    res["prepare_s"] = time.perf_counter() - t0
+    res["bucket_cap"], res["n_overflow"] = (idx._b_img.shape[1],
+                                            idx.n_overflow)
+
+    def run(probes: int, verify: int = 0, rows=slice(None)):
+        idx.probes = probes
+        t0 = time.perf_counter()
+        out = idx.query_batch(q[rows], topk=VOCAB_TOPK + 1, verify=verify,
+                              geometries=qf[rows] if verify else None,
+                              image_extent=1024.0)
+        return out, time.perf_counter() - t0
+    runs = {}
+    for probes, verify in [(p, 0) for p in VOCAB_PROBES] + [(8, VOCAB_VERIFY)]:
+        run(probes, verify)                                     # warm
+        (ids, sc, _), dt = run(probes, verify)
+        label = ("exact" if probes == 0 else f"probes {probes}") + (
+            f" + verify {verify}" if verify else "")
+        assert ids.shape == (len(src), VOCAB_TOPK + 1), label
+        assert ids.min() >= 0 and ids.max() < VOCAB_IMAGES, label
+        assert np.isfinite(sc).all(), label
+        runs[label] = {"ids": ids, "scores": sc,
+                       "recall_at_1": float(np.mean(ids[:, 0] == src)),
+                       "recall_at_5": float(np.mean(
+                           (ids[:, :VOCAB_TOPK] == src[:, None]).any(1))),
+                       "ms_per_image": dt / len(src) * 1e3}
+    torch.cuda.synchronize()
+    res["launches"] = {"adc_segmin": T.adc_segmin.launches,
+                       "adc_segmin_cached": T.adc_segmin_cached.launches,
+                       "ivf_page": V.ivf_pages_segmin.launches}
+    for label in ("probes 8", f"probes 8 + verify {VOCAB_VERIFY}"):
+        assert runs[label]["recall_at_1"] >= 0.90, (label, runs[label])
+    assert not any(res["launches"].values()), res["launches"]
+
+    # single queries against the batch (probes 8, no verification)
+    idx.probes = 8
+    base = runs["probes 8"]
+    single = [idx.query(q[j], topk=VOCAB_TOPK + 1) for j in range(4)]
+    res["single_excused"] = rankings_agree(
+        base["ids"][:4], base["scores"][:4],
+        [[int(n[4:]) for n in names] for names, _ in single],
+        [s for _, s in single], VOCAB_TOPK)
+
+    # the same index saved and loaded on the CPU answers as the card
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "vocab.npz")
+    idx.save(path)
+    cpu = VocabHEIndex.load(path, device="cpu")
+    rows = slice(0, VOCAB_CPU_Q)
+    c_ids, c_sc, _ = cpu.query_batch(q[rows], topk=VOCAB_TOPK + 1)
+    res["cpu_excused"] = rankings_agree(base["ids"][rows],
+                                        base["scores"][rows], c_ids, c_sc,
+                                        VOCAB_TOPK)
+    ver = runs[f"probes 8 + verify {VOCAB_VERIFY}"]
+    v_ids, v_sc, _ = cpu.query_batch(q[rows], topk=VOCAB_TOPK + 1,
+                                     verify=VOCAB_VERIFY,
+                                     geometries=qf[rows],
+                                     image_extent=1024.0)
+    res["cpu_verified_excused"] = rankings_agree(
+        ver["ids"][rows, :1], ver["scores"][rows, :1], v_ids[:, :1],
+        v_sc[:, :1], 1)
+    res["cpu_verified_other_ranks_differ"] = int(
+        (v_ids[:, 1:VOCAB_TOPK] != ver["ids"][rows, 1:VOCAB_TOPK]).sum()
+        + (~np.isclose(v_sc[:, 1:VOCAB_TOPK], ver["scores"][rows,
+                                                           1:VOCAB_TOPK],
+                       rtol=VOCAB_RTOL, atol=1e-7)).sum())
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["runs"] = runs
+    res["_index"], res["_q"], res["_path"], res["_tmp"] = idx, q, path, tmp
+    res["_desc"], res["_frames"], res["_src"] = desc, frames, src
+    return res
+
+
+def run_vocab_cli(idx, q, path: str, desc, frames, tmp: str) -> dict:
+    """Step 13: `cli vocab_tree_retriever` on a FeatureDatabase with the
+    first VOCAB_CLI_Q indexed images and the first VOCAB_CLI_Q queries
+    (stored as images of their own), --vocab_index at the saved index.
+    Returns its ranked ids and scores, and the process wall time."""
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    db_path = os.path.join(tmp, "db.sqlite")
+    with FeatureDatabase(db_path) as db:
+        for i in range(VOCAB_CLI_Q):
+            iid = db.add_image(f"img_{i:04d}")
+            db.write_descriptors(iid, desc[i])
+            db.write_keypoints(iid, frames[i])
+        for j in range(VOCAB_CLI_Q):
+            iid = db.add_image(f"query_{j:03d}")
+            db.write_descriptors(iid, q[j])
+        db.commit()
+    lists = {}
+    for kind, names in (("db", [f"img_{i:04d}" for i in range(VOCAB_CLI_Q)]),
+                        ("q", [f"query_{j:03d}" for j in range(VOCAB_CLI_Q)])):
+        lists[kind] = os.path.join(tmp, f"{kind}.txt")
+        with open(lists[kind], "w") as f:
+            f.write("\n".join(names) + "\n")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "cvt_tpu_torch.cli", "vocab_tree_retriever",
+         "--database", db_path, "--vocab_index", path,
+         "--database_image_list", lists["db"], "--query_image_list",
+         lists["q"], "--topk", str(VOCAB_TOPK + 1)],
+        capture_output=True, text=True, cwd=root, timeout=300)
+    wall = time.perf_counter() - t0
+    if run.returncode:
+        raise RuntimeError(f"cli vocab_tree_retriever exited "
+                           f"{run.returncode}: {run.stderr[-2000:]}")
+    ids, scores = [], []
+    for line in run.stdout.splitlines():
+        if line.startswith("Querying for image"):
+            ids.append([])
+            scores.append([])
+        elif line.startswith("  image_name="):
+            name, score = line.strip()[len("image_name="):].split(
+                ", score=")
+            ids[-1].append(int(name[4:]))
+            scores[-1].append(float(score))
+    idx.probes = 8
+    want_ids, want_sc, _ = idx.query_batch(q[:VOCAB_CLI_Q],
+                                           topk=VOCAB_TOPK + 1)
+    # the command prints scores to 6 decimals: atol one printed unit
+    assert len(ids) == VOCAB_CLI_Q, run.stdout[-2000:]
+    excused = rankings_agree(want_ids, want_sc, np.array(ids),
+                             np.array(scores), VOCAB_TOPK, atol=1e-6)
+    return {"wall_s": wall, "excused": excused}
+
+
+def run_vocab(stamp: str) -> dict:
+    """Steps 12-13: the vocabulary-tree phase, its CLI run and prints."""
+    from cvt_tpu_torch.index import VocabHEIndex
+    vb = phase_vocab(stamp)
+    idx, q, path, tmp = (vb.pop("_index"), vb.pop("_q"), vb.pop("_path"),
+                         vb.pop("_tmp"))
+    desc, frames, _ = vb.pop("_desc"), vb.pop("_frames"), vb.pop("_src")
+    k1, k2 = VocabHEIndex._factor(VOCAB_W)
+    print(f"vocab tree W={VOCAB_W} (hierarchical {k1} x {k2}), "
+          f"{VOCAB_IMAGES} images x {VOCAB_PER_IMAGE} descriptors: data "
+          f"{vb['data_s']:.1f} s, train on {VOCAB_TRAIN} (iters 10) "
+          f"{vb['train_s']:.1f} s, add (encode on the card) "
+          f"{vb['encode_s']:.1f} s, prepare (host layout + "
+          f"self-similarity) {vb['prepare_s']:.1f} s; bucket cap "
+          f"{vb['bucket_cap']}, overflow tail {vb['n_overflow']} {stamp}")
+    for label, r in vb["runs"].items():
+        print(f"vocab query_batch B={len(q)} Kq={VOCAB_KQ} topk "
+              f"{VOCAB_TOPK}, {label}: recall@1 {r['recall_at_1']:.4f} "
+              f"recall@5 {r['recall_at_5']:.4f}, {r['ms_per_image']:.3f} "
+              f"ms/image (synchronised wall clock) {stamp}")
+    print(f"vocab single query vs batch (4 queries): agree, "
+          f"{vb['single_excused']} near-tie ranks swapped; the index "
+          f"loaded on the CPU vs the card ({VOCAB_CPU_Q} queries): agree, "
+          f"{vb['cpu_excused']} near-tie ranks swapped; verified top-1 "
+          f"agrees, {vb['cpu_verified_other_ranks_differ']} names or "
+          f"scores differ at verified ranks 2-{VOCAB_TOPK}; launches "
+          f"during the vocabulary-tree path: {vb['launches']} {stamp}")
+    try:
+        cli = run_vocab_cli(idx, q, path, desc, frames, tmp)
+    finally:
+        shutil.rmtree(tmp)
+    print(f"cli vocab_tree_retriever: {VOCAB_CLI_Q} queries against the "
+          f"saved index ranked as in-process query_batch ({cli['excused']} "
+          f"near-tie ranks swapped), {cli['wall_s']:.1f} s process wall "
+          f"clock; vocabulary phase {vb['phase_s']:.1f} s {stamp}")
+    vb["cli"] = cli
+    return vb
+
+
 def print_compare(what: str, cmp: dict, stamp: str) -> None:
     for name, c in cmp.items():
         print(f"kernel vs twin, {what}: {name} max|diff| {c['max_abs_err']}"
@@ -1045,6 +1386,8 @@ def main() -> int:
     print(f"kernel vs twin, random inputs, S=48 pages B=200, n_live 44: "
           f"ivf_page max|diff| {ivf_rand_live['max_abs_err']} {stamp}")
 
+    phase_topk(stamp)
+
     res = phase_main_path()
     idx, q_dev = res.pop("_index"), res.pop("_q")
     base_dev, gt = res.pop("_base"), res.pop("_gt")
@@ -1132,6 +1475,7 @@ def main() -> int:
 
     sq = run_sq(base_dev, q_dev, stamp)
     sv = run_serving(idx, q_dev, gt, ids_ref, base_dev, stamp)
+    run_vocab(stamp)
     # last: the profiler leaves its hooks behind, which slows the host side
     # of whatever runs after it
     from cvt_tpu_torch.ops.kernels import adc_scan as T

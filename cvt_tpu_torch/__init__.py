@@ -10,19 +10,22 @@ the CPU and launches the kernel (or raises) for tensors on the card.
 This package imports `torch` and numpy only, never `jax` or `cvt_tpu`.
 
 Subpackages:
-  io        fvecs/bvecs/ivecs, SIFT-like synthetic data
-  ops       normalize, pairwise distances, stable top-k, k-means;
-            ops/kernels the flat ADC and IVF page scan kernels and
-            their twins
+  io        fvecs/bvecs/ivecs, SIFT-like synthetic data, the SQLite
+            feature database
+  ops       normalize, pairwise distances, top-k with lax.top_k's tie
+            order, flat / blocked / hierarchical k-means; ops/kernels
+            the flat ADC and IVF page scan kernels and their twins
   quant     ScalarQuantizer (int8 SQ), ProductQuantizer, OPQ, PCA
   index     FlatIndex (exact), FlatSQIndex (int8 SQ codes),
             FlatADCIndex (PQ/OPQ codes), IVFADCIndex (inverted lists of
-            residual PQ codes)
+            residual PQ codes), VocabHEIndex (vocabulary tree + Hamming
+            embedding over images)
+  match     2-D solvers and vote-and-verify spatial verification
   parallel  device meshes, ShardedADCSearcher, MultiHostADCServer,
             QueryBatcher, sharded k-means over torch.distributed
-  utils     recall@k
+  utils     recall@k, the device rule
   convert   numpy parameters of `cvt_tpu` objects -> the port's objects
-  cli       `python -m cvt_tpu_torch.cli serve ...`
+  cli       `python -m cvt_tpu_torch.cli <command> ...`
 """
 
 __version__ = "0.1.0"

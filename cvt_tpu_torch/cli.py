@@ -2,18 +2,29 @@
 
 Usage:  python -m cvt_tpu_torch.cli <command> [args]
 Commands:
-  serve   sharded query server over a saved flat ADC index
+  gen_data              write a synthetic SIFT-like fvecs dataset
+  exact_search          brute-force ground truth (ivecs output)
+  sq_train              train an int8 scalar quantizer
+  pq_train              train a PQ/OPQ codebook
+  build_adc             encode a database into a flat ADC index
+  search_adc            query a flat ADC index, report recall if GT given
+  vocab_tree_retriever  index + rank database images by vocab tree
+  serve                 sharded query server over a saved flat ADC index
 
-The other commands of `cvt_tpu.cli` are not ported yet. `serve` runs one
-rank per process on the card (`--device cpu` asks for the CPU; without a
-card and without it the command fails): alone it is a 1-rank group; under
-torchrun every rank holds one shard of the codes:
+Flags, outputs and printed lines are `cvt_tpu.cli`'s, and the files each
+command reads or writes are interchangeable with it. Every command but
+gen_data runs on the card; `--device cpu` asks for the CPU (without a
+card and without it the command fails). Seeds give a torch.Generator
+where `cvt_tpu` makes a jax.random key, so trained models differ between
+the two packages for the same seed. `serve` runs one rank per process:
+alone it is a 1-rank group; under torchrun every rank holds one shard:
 
     python -m cvt_tpu_torch.cli serve --index pack.npz --queries q.fvecs
     python -m cvt_tpu_torch.cli serve --index pack.npz --stdin < q.jsonl
     torchrun --nproc-per-node 4 -m cvt_tpu_torch.cli serve --index ...
 
-Rank 0 prints one JSON line per query: {"ids": [...], "dists": [...]}.
+serve's rank 0 prints one JSON line per query: {"ids": [...], "dists":
+[...]}.
 """
 
 from __future__ import annotations
@@ -23,6 +34,193 @@ import json
 import sys
 
 import numpy as np
+
+
+def _cmd_gen_data(args):
+    from cvt_tpu_torch.io.datasets import synthetic_sift
+    from cvt_tpu_torch.io.vecs import write_fvecs
+    base, queries = synthetic_sift(args.n, args.dim, n_queries=args.queries,
+                                   seed=args.seed)
+    write_fvecs(args.out + "_base.fvecs", base)
+    write_fvecs(args.out + "_query.fvecs", queries)
+    print(f"wrote {args.n}x{args.dim} base + {args.queries} queries")
+
+
+def _cmd_exact_search(args):
+    from cvt_tpu_torch.index import FlatIndex
+    from cvt_tpu_torch.io.vecs import read_fvecs, write_ivecs
+    base = read_fvecs(args.base)
+    queries = read_fvecs(args.queries)
+    idx = FlatIndex(base.shape[1], args.metric, device=args.device)
+    idx.add(base)
+    _, i = idx.search(queries, args.k)
+    write_ivecs(args.out, i.cpu().numpy())
+    print(f"wrote ground truth top-{args.k} for {queries.shape[0]} queries")
+
+
+def _cmd_sq_train(args):
+    from cvt_tpu_torch.io.vecs import read_fvecs
+    from cvt_tpu_torch.quant import ScalarQuantizer
+    x = read_fvecs(args.data)
+    sq = ScalarQuantizer.train(x, l2norm=not args.no_l2norm,
+                               device=args.device)
+    l2, ip = sq.reconstruction_loss(x)
+    sq.save(args.out)
+    print(f"trained SQ d={sq.dim}; reconstruction L2 {float(l2):.5f}, "
+          f"IP {float(ip):.5f}")
+
+
+def _cmd_pq_train(args):
+    import torch
+    from cvt_tpu_torch.io.vecs import read_fvecs
+    from cvt_tpu_torch.quant import OPQ, ProductQuantizer
+    x = read_fvecs(args.data)
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.opq:
+        q = OPQ.train(gen, x, m=args.m, k=args.k, opq_iters=args.opq_iters,
+                      device=args.device)
+    else:
+        q = ProductQuantizer.train(gen, x, m=args.m, k=args.k,
+                                   device=args.device)
+    mse = float(q.reconstruction_mse(x[:65536]))
+    q.save(args.out)
+    print(f"trained {'OPQ' if args.opq else 'PQ'} m={args.m} k={args.k}; "
+          f"reconstruction MSE {mse:.2f}")
+
+
+def _cmd_build_adc(args):
+    from cvt_tpu_torch.index import FlatADCIndex
+    from cvt_tpu_torch.io.vecs import read_fvecs
+    from cvt_tpu_torch.quant import OPQ, ProductQuantizer
+    base = read_fvecs(args.base)
+    quant = (OPQ if args.opq else ProductQuantizer).load(args.model,
+                                                         device=args.device)
+    idx = FlatADCIndex(quant)
+    for s in range(0, base.shape[0], 262144):
+        idx.add(base[s:s + 262144])
+    idx.save(args.out)
+    print(f"indexed {idx.ntotal} codes")
+
+
+def _cmd_search_adc(args):
+    from cvt_tpu_torch.index import FlatADCIndex
+    from cvt_tpu_torch.io.vecs import read_fvecs, read_ivecs
+    from cvt_tpu_torch.utils import recall_at_k
+    idx = FlatADCIndex.load(args.index, device=args.device)
+    queries = read_fvecs(args.queries)
+    _, i = idx.search(queries, args.k)
+    out = {"n_queries": int(queries.shape[0]), "k": args.k}
+    if args.gt:
+        gt = read_ivecs(args.gt)
+        out["recall@1"] = recall_at_k(i, gt[:, 0], k=1)
+        out[f"recall@{args.k}"] = recall_at_k(i, gt[:, 0], k=args.k)
+    print(json.dumps(out))
+
+
+def _cmd_vocab_tree_retriever(args):
+    """Index database images into a VocabHEIndex and rank them for each
+    query image (RunVocabTreeRetriever, exe/vocab_tree.cc:73-184):
+    read-or-train tree -> add every database image -> prepare -> batched
+    query -> print per-query ranked (image, score) lines.
+
+    As in `cvt_tpu`, a loaded index takes no new image: names it already
+    holds are skipped, and any other database image makes add_image
+    raise."""
+    import torch
+    from cvt_tpu_torch.index import VocabHEIndex
+    from cvt_tpu_torch.io.database import FeatureDatabase
+
+    def read_list(path, db):
+        if not path:
+            return [i for i, _ in db.iter_images()]
+        with open(path) as f:
+            names = [ln.strip() for ln in f if ln.strip()]
+        ids = []
+        for n in names:
+            iid = db.image_id(n)
+            if iid is None:
+                print(f"WARNING: image {n!r} not in database, skipped")
+            else:
+                ids.append(iid)
+        return ids
+
+    with FeatureDatabase(args.database) as db:
+        db_ids = read_list(args.database_image_list, db)
+        q_ids = read_list(args.query_image_list, db) \
+            if args.query_image_list else []
+        desc_of = {}                 # read each image's blobs once
+        if args.vocab_index:
+            index = VocabHEIndex.load(args.vocab_index, device=args.device)
+        else:
+            for i in db_ids:
+                d = db.read_descriptors(i)
+                if d is not None and len(d):
+                    desc_of[i] = d
+            if not desc_of:
+                raise SystemExit("vocab_tree_retriever: no descriptors "
+                                 "in the database")
+            train = np.concatenate(list(desc_of.values())).astype(
+                np.float32)
+            index = VocabHEIndex(
+                n_words=min(args.num_words, max(len(train) // 4, 16)),
+                dim=train.shape[1], probes=args.probes, device=args.device)
+            index.train(torch.Generator().manual_seed(0), train, iters=10)
+        indexed = set(index._names)
+        for i, iid in enumerate(db_ids):
+            name = db.image_name(iid)
+            if name in indexed:
+                print(f"Indexing image [{i + 1}/{len(db_ids)}] "
+                      f"(already indexed)")
+                continue
+            d = desc_of.get(iid)
+            if d is None:
+                d = db.read_descriptors(iid)
+            if d is None or not len(d):
+                continue
+            if args.max_features > 0:
+                d = d[:args.max_features]
+            kp = db.read_keypoints(iid)
+            geom = (kp[:len(d), :4] if kp is not None
+                    and kp.shape[1] >= 4 else None)
+            index.add_image(d.astype(np.float32), name=name,
+                            geometries=geom)
+            print(f"Indexing image [{i + 1}/{len(db_ids)}]")
+        index.prepare()
+        if args.output_index:
+            index.save(args.output_index)
+        if not q_ids:
+            return 0
+        # pad query descriptor sets to one [Q, Kq, D] batch
+        qs, gs, names = [], [], []
+        kq = 0
+        for iid in q_ids:
+            d = db.read_descriptors(iid)
+            d = np.zeros((0, index.dim), np.float32) if d is None else d
+            if args.max_features > 0:
+                d = d[:args.max_features]
+            kq = max(kq, len(d), 1)
+            qs.append(d.astype(np.float32))
+            kp = db.read_keypoints(iid)
+            gs.append(kp[:len(d), :4] if kp is not None
+                      and kp.shape[1] >= 4
+                      else np.zeros((len(d), 4), np.float32))
+            names.append(db.image_name(iid))
+        batch = np.zeros((len(qs), kq, index.dim), np.float32)
+        valid = np.zeros((len(qs), kq), bool)
+        geom = np.zeros((len(qs), kq, 4), np.float32)
+        for i, (d, g) in enumerate(zip(qs, gs)):
+            batch[i, :len(d)] = d
+            valid[i, :len(d)] = True
+            geom[i, :len(d)] = g
+        ids, scores, slot_names = index.query_batch(
+            batch, topk=args.topk, valid=valid,
+            verify=args.verify, geometries=geom if args.verify else None)
+        for qi, qname in enumerate(names):
+            print(f"Querying for image {qname} [{qi + 1}/{len(names)}]")
+            for j, s in zip(ids[qi], scores[qi]):
+                print(f"  image_name={slot_names[int(j)]}, "
+                      f"score={float(s):f}")
+    return 0
 
 
 def _print_rows(d, i) -> None:
@@ -96,7 +294,69 @@ def main(argv=None):
                                 formatter_class=argparse.RawTextHelpFormatter)
     sub = p.add_subparsers(dest="command", required=True)
 
-    g = sub.add_parser("serve")
+    def parser(name, fn, on_device=True):
+        g = sub.add_parser(name)
+        if on_device:
+            g.add_argument("--device", default="cuda",
+                           choices=["cuda", "cpu"])
+        g.set_defaults(fn=fn)
+        return g
+
+    g = parser("gen_data", _cmd_gen_data, on_device=False)
+    g.add_argument("--n", type=int, default=100000)
+    g.add_argument("--dim", type=int, default=128)
+    g.add_argument("--queries", type=int, default=1000)
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--out", required=True)
+
+    g = parser("exact_search", _cmd_exact_search)
+    g.add_argument("--base", required=True)
+    g.add_argument("--queries", required=True)
+    g.add_argument("--k", type=int, default=100)
+    g.add_argument("--metric", default="l2", choices=["l2", "ip"])
+    g.add_argument("--out", required=True)
+
+    g = parser("sq_train", _cmd_sq_train)
+    g.add_argument("--data", required=True)
+    g.add_argument("--no-l2norm", action="store_true")
+    g.add_argument("--out", required=True)
+
+    g = parser("pq_train", _cmd_pq_train)
+    g.add_argument("--data", required=True)
+    g.add_argument("--m", type=int, default=8)
+    g.add_argument("--k", type=int, default=256)
+    g.add_argument("--opq", action="store_true")
+    g.add_argument("--opq-iters", type=int, default=8)
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--out", required=True)
+
+    g = parser("build_adc", _cmd_build_adc)
+    g.add_argument("--base", required=True)
+    g.add_argument("--model", required=True)
+    g.add_argument("--opq", action="store_true")
+    g.add_argument("--out", required=True)
+
+    g = parser("search_adc", _cmd_search_adc)
+    g.add_argument("--index", required=True)
+    g.add_argument("--queries", required=True)
+    g.add_argument("--k", type=int, default=10)
+    g.add_argument("--gt")
+
+    g = parser("vocab_tree_retriever", _cmd_vocab_tree_retriever)
+    g.add_argument("--database", required=True)
+    g.add_argument("--vocab_index", default="",
+                   help="saved VocabHEIndex .npz (else train from db)")
+    g.add_argument("--database_image_list", default="")
+    g.add_argument("--query_image_list", default="")
+    g.add_argument("--output_index", default="")
+    g.add_argument("--num_words", type=int, default=65536)
+    g.add_argument("--probes", type=int, default=8)
+    g.add_argument("--max_features", type=int, default=-1)
+    g.add_argument("--topk", type=int, default=10)
+    g.add_argument("--verify", type=int, default=0,
+                   help="spatially re-rank this many candidates")
+
+    g = parser("serve", _cmd_serve)
     g.add_argument("--index", required=True)
     g.add_argument("--queries", default=None)
     g.add_argument("--stdin", action="store_true")
@@ -105,8 +365,6 @@ def main(argv=None):
     g.add_argument("--merge", default="allgather",
                    choices=["allgather", "ring"])
     g.add_argument("--max-wait-ms", type=float, default=5.0)
-    g.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    g.set_defaults(fn=_cmd_serve)
 
     args = p.parse_args(argv)
     import torch.distributed as dist

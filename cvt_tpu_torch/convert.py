@@ -15,6 +15,7 @@ import torch
 from cvt_tpu_torch.index.flat_adc import FlatADCIndex
 from cvt_tpu_torch.index.flat_sq import FlatSQIndex
 from cvt_tpu_torch.index.ivf_adc import IVFADCIndex
+from cvt_tpu_torch.index.vocab_he import VocabHEIndex
 from cvt_tpu_torch.quant.opq import OPQ
 from cvt_tpu_torch.quant.pca import PCA
 from cvt_tpu_torch.quant.pq import ProductQuantizer
@@ -98,3 +99,15 @@ def flat_sq_from_numpy(codes_s8, term3, vmin, vdiff,
                                         device=idx.device)
         idx._dec8_n = idx.ntotal
     return idx
+
+
+def vocab_he_from_numpy(arrays, device=None) -> VocabHEIndex:
+    """The arrays a `cvt_tpu` VocabHEIndex.save writes (a dict, or the
+    NpzFile of the saved file) -> the port's VocabHEIndex: vocabulary
+    (words, coarse/fine when hierarchical, he_proj, he_thresh), and, when
+    given, the prepared layout (buckets, tail, entries, idf, self_norm)
+    and names, signatures converted from [..., 2] uint32 to int64. With
+    the vocabulary alone the index is trained and empty: add_image and
+    prepare build its layout. Set `probes` and `bucket_cap` on the result
+    where the source index used other values than the defaults."""
+    return VocabHEIndex._from_arrays(arrays, device)

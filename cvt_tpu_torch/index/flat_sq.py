@@ -52,16 +52,18 @@ def _sq_scan(r_scaled, r_sq, codes_s8, term3, k: int, mode: str, chunk: int,
         lhs = tq.float().T                                       # [D, B]
     else:
         lhs = r_scaled.to(torch.bfloat16).float().T
+    # the products are copied to [B, chunk] rows: the selection below reads
+    # rows, and a strided row costs it ~1.8x (_prof_topk_torch.py's sweep)
     best_d = torch.full((b, k), float("inf"), device=r_sq.device)
     best_i = torch.full((b, k), -1, dtype=torch.int32, device=r_sq.device)
     for base in range(0, codes_s8.shape[0], chunk):
         c = codes_s8[base:base + chunk]
         if mode == "int8":
-            ipq = (c.float() @ lhs).T                            # [B, chunk]
+            ipq = (c.float() @ lhs).T.contiguous()               # [B, chunk]
             # <r_scaled, c> = gamma * (<tq, c-128> + 128 * sum(tq))
             ip = gamma * (ipq + 128.0 * tq_sum[:, None].float())
         else:
-            ip = ((c.to(torch.int32) + 128).float() @ lhs).T
+            ip = ((c.to(torch.int32) + 128).float() @ lhs).T.contiguous()
         dist = r_sq[:, None] - 2.0 * ip + term3[None, base:base + chunk]
         ids = torch.arange(base, base + chunk, device=r_sq.device,
                            dtype=torch.int32)

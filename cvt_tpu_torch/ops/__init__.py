@@ -8,7 +8,9 @@ from cvt_tpu_torch.ops.linalg import (
 )
 from cvt_tpu_torch.ops.topk import (top_k_smallest, top_k_largest,
                                     merge_topk, chunked_topk_scan)
-from cvt_tpu_torch.ops.kmeans import kmeans, kmeans_assign, KMeansResult
+from cvt_tpu_torch.ops.kmeans import (kmeans, kmeans_assign, KMeansResult,
+                                     hierarchical_kmeans, hierarchical_assign,
+                                     HierKMeansResult)
 
 __all__ = [
     "l2_normalize",
@@ -22,4 +24,7 @@ __all__ = [
     "kmeans",
     "kmeans_assign",
     "KMeansResult",
+    "hierarchical_kmeans",
+    "hierarchical_assign",
+    "HierKMeansResult",
 ]

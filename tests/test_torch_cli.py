@@ -1,15 +1,22 @@
 """`python -m cvt_tpu_torch.cli serve` held against cvt_tpu's
 MultiHostADCServer on a 1-device mesh, on a pack that cvt_tpu's
-FlatADCIndex.save wrote; and every new port module importable with jax
-and cvt_tpu blocked.
+FlatADCIndex.save wrote; every other ported command held against the
+same `cvt_tpu.cli` command on files cvt_tpu wrote; and every new port
+module importable with jax and cvt_tpu blocked.
 
 The command runs in a subprocess whose `jax` and `cvt_tpu` imports are
 blocked (sys.modules entries set to None), as on a machine without JAX;
 it starts a 1-rank gloo group through a FileStore. Tolerance: ids
 bitwise. The PQ codebooks are snapped to a power-of-two grid so that
 the in-kernel norm is exact in any summation order (see
-tests/_torch_parallel_workers.py)."""
+tests/_torch_parallel_workers.py). The other commands run in-process
+(`main(argv)`) with `--device cpu`; printed lines equal, apart from
+pq_train's error (another generator trains other codebooks) and
+vocab_tree_retriever's scores (rtol 1e-5, float32 sums in another
+order)."""
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -20,10 +27,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from cvt_tpu import cli as jcli
 from cvt_tpu.index import FlatADCIndex
-from cvt_tpu.io.vecs import write_fvecs
+from cvt_tpu.io.database import FeatureDatabase
+from cvt_tpu.io.vecs import read_ivecs, write_fvecs
 from cvt_tpu.parallel import MultiHostADCServer, serving_mesh
 from cvt_tpu.quant import ProductQuantizer
+from cvt_tpu.quant import OPQ
+from cvt_tpu_torch import cli as tcli
 from _torch_parallel_workers import snap_codebooks
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,7 +44,11 @@ MODULES = ["cvt_tpu_torch.quant.sq", "cvt_tpu_torch.quant.pca",
            "cvt_tpu_torch.parallel.mesh", "cvt_tpu_torch.parallel.serving",
            "cvt_tpu_torch.parallel.sharded_search",
            "cvt_tpu_torch.parallel.distributed_kmeans",
-           "cvt_tpu_torch.cli", "cvt_tpu_torch.convert"]
+           "cvt_tpu_torch.cli", "cvt_tpu_torch.convert",
+           "cvt_tpu_torch.ops.topk", "cvt_tpu_torch.ops.kmeans",
+           "cvt_tpu_torch.match", "cvt_tpu_torch.match.solvers",
+           "cvt_tpu_torch.match.vote_verify",
+           "cvt_tpu_torch.index.vocab_he", "cvt_tpu_torch.io.database"]
 
 
 def _python(code: str, *args, stdin: str | None = None):
@@ -101,3 +116,189 @@ def test_new_modules_import_without_jax():
                 "print('ok')", *MODULES)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip() == "ok"
+
+
+def _run(main, *argv) -> list[str]:
+    """A CLI's main(argv) in this process -> its printed lines."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(list(argv))
+    return out.getvalue().splitlines()
+
+
+@pytest.fixture(scope="module")
+def vec_files(tmp_path_factory):
+    """cvt_tpu's gen_data, exact_search and OPQ pq_train outputs."""
+    tmp = tmp_path_factory.mktemp("vecs")
+    p = str(tmp / "j")
+    _run(jcli.main, "gen_data", "--n", "3000", "--dim", "32", "--queries",
+         "24", "--out", p)
+    _run(jcli.main, "exact_search", "--base", p + "_base.fvecs",
+         "--queries", p + "_query.fvecs", "--k", "10", "--out",
+         p + "_gt.ivecs")
+    _run(jcli.main, "pq_train", "--data", p + "_base.fvecs", "--m", "4",
+         "--k", "16", "--opq", "--opq-iters", "2", "--out", p + "_opq.npz")
+    return p
+
+
+def test_gen_data_and_exact_search(vec_files, tmp_path):
+    p, q = vec_files, str(tmp_path / "t")
+    want = _run(jcli.main, "gen_data", "--n", "3000", "--dim", "32",
+                "--queries", "24", "--out", str(tmp_path / "j"))
+    assert _run(tcli.main, "gen_data", "--n", "3000", "--dim", "32",
+                "--queries", "24", "--out", q) == want
+    for part in ("_base.fvecs", "_query.fvecs"):
+        with open(p + part, "rb") as a, open(q + part, "rb") as b:
+            assert a.read() == b.read()
+    lines = _run(tcli.main, "exact_search", "--base", p + "_base.fvecs",
+                 "--queries", p + "_query.fvecs", "--k", "10", "--out",
+                 q + "_gt.ivecs", "--device", "cpu")
+    assert lines == ["wrote ground truth top-10 for 24 queries"]
+    np.testing.assert_array_equal(read_ivecs(q + "_gt.ivecs"),
+                                  read_ivecs(p + "_gt.ivecs"))
+
+
+def test_sq_train_and_pq_train(vec_files, tmp_path):
+    p, q = vec_files, str(tmp_path / "t")
+    args = ("sq_train", "--data", p + "_base.fvecs")
+    want = _run(jcli.main, *args, "--out", str(tmp_path / "j_sq.npz"))
+    assert _run(tcli.main, *args, "--out", q + "_sq.npz",
+                "--device", "cpu") == want
+    with np.load(q + "_sq.npz") as a, np.load(str(tmp_path / "j_sq.npz")) \
+            as b:
+        for name in ("vmin", "vdiff"):     # L2 norms summed in another order
+            np.testing.assert_allclose(a[name], b[name], rtol=1e-6,
+                                       atol=1e-7)
+    lines = _run(tcli.main, "pq_train", "--data", p + "_base.fvecs", "--m",
+                 "4", "--k", "16", "--opq", "--opq-iters", "2", "--out",
+                 q + "_opq.npz", "--device", "cpu")
+    assert len(lines) == 1
+    assert lines[0].startswith("trained OPQ m=4 k=16; reconstruction MSE ")
+    # cvt_tpu reads the port's codebook file; the error is that of a
+    # k-means of another seed
+    from cvt_tpu.io.vecs import read_fvecs
+    x = read_fvecs(p + "_base.fvecs")
+    mse_t = float(OPQ.load(q + "_opq.npz").reconstruction_mse(x))
+    mse_j = float(OPQ.load(p + "_opq.npz").reconstruction_mse(x))
+    assert abs(mse_t - mse_j) <= 0.1 * mse_j
+
+
+def test_build_adc_and_search_adc(vec_files, tmp_path):
+    p, q = vec_files, str(tmp_path / "t")
+    args = ("build_adc", "--base", p + "_base.fvecs", "--model",
+            p + "_opq.npz", "--opq")
+    want = _run(jcli.main, *args, "--out", str(tmp_path / "j_idx.npz"))
+    assert _run(tcli.main, *args, "--out", q + "_idx.npz",
+                "--device", "cpu") == want
+    with np.load(q + "_idx.npz") as a, \
+            np.load(str(tmp_path / "j_idx.npz")) as b:
+        assert np.mean(a["codes"] == b["codes"]) >= 0.999  # near-ties
+    args = ("search_adc", "--index", str(tmp_path / "j_idx.npz"),
+            "--queries", p + "_query.fvecs", "--gt", p + "_gt.ivecs")
+    assert _run(tcli.main, *args, "--device", "cpu") == \
+        _run(jcli.main, *args)
+
+
+@pytest.fixture(scope="module")
+def feature_db(tmp_path_factory):
+    """A FeatureDatabase that cvt_tpu's io.database wrote (10 images x 48
+    SIFT-like descriptors with frames), a query list, and the vocabulary
+    index cvt_tpu's vocab_tree_retriever trained and saved from it."""
+    tmp = tmp_path_factory.mktemp("vocab_db")
+    rng = np.random.default_rng(5)
+    train = rng.gamma(1.5, 20.0, size=(2048, 128))
+    db_path = str(tmp / "db.sqlite")
+    with FeatureDatabase(db_path) as db:
+        for i in range(10):
+            iid = db.add_image(f"image_{i:03d}", width=640, height=480)
+            d = np.clip(train[rng.integers(0, 2048, 48)]
+                        + rng.normal(0, 2, (48, 128)), 0, 255)
+            kp = np.stack([rng.uniform(0, 640, 48), rng.uniform(0, 480, 48),
+                           rng.uniform(1.5, 8, 48), rng.uniform(-3, 3, 48)],
+                          -1)
+            db.write_descriptors(iid, d.astype(np.uint8))
+            db.write_keypoints(iid, kp)
+        db.commit()
+    qlist = str(tmp / "queries.txt")
+    with open(qlist, "w") as f:
+        f.write("image_002\nimage_007\nmissing\nimage_009\n")
+    index = str(tmp / "j_vocab.npz")
+    _run(jcli.main, "vocab_tree_retriever", "--database", db_path,
+         "--num_words", "64", "--output_index", index)
+    return db_path, qlist, index
+
+
+def _ranked(lines):
+    """Printed retriever lines -> (text with scores cut, scores)."""
+    text, scores = [], []
+    for line in lines:
+        if ", score=" in line:
+            head, score = line.rsplit(", score=", 1)
+            text.append(head)
+            scores.append(float(score))
+        else:
+            text.append(line)
+    return text, np.array(scores)
+
+
+def test_vocab_tree_retriever_on_cvt_tpu_index(feature_db):
+    """Both CLIs on cvt_tpu's saved index: the same lines and ranked
+    names, scores within rtol 1e-5 (printed to 6 decimals)."""
+    db_path, qlist, index = feature_db
+    args = ("vocab_tree_retriever", "--database", db_path, "--vocab_index",
+            index, "--query_image_list", qlist, "--topk", "4")
+    want, want_s = _ranked(_run(jcli.main, *args))
+    got, got_s = _ranked(_run(tcli.main, *args, "--device", "cpu"))
+    assert got == want
+    np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-6)
+    assert "  image_name=image_002" in got
+    assert any(line.startswith("WARNING: image 'missing'") for line in got)
+
+
+def test_vocab_tree_retriever_trains_and_verifies(feature_db, tmp_path):
+    """The port trains its own tree from the database, saves an index
+    cvt_tpu loads, and ranks every query image first for itself, with
+    and without spatial verification."""
+    db_path, qlist, _ = feature_db
+    out = str(tmp_path / "t_vocab.npz")
+    for verify in ("0", "3"):
+        lines = _run(tcli.main, "vocab_tree_retriever", "--database",
+                     db_path, "--num_words", "64", "--query_image_list",
+                     qlist, "--topk", "3", "--verify", verify,
+                     "--output_index", out, "--device", "cpu")
+        firsts = [lines[i + 1] for i, line in enumerate(lines)
+                  if line.startswith("Querying for image")]
+        assert [f.split(",")[0] for f in firsts] == [
+            "  image_name=image_002", "  image_name=image_007",
+            "  image_name=image_009"]
+    from cvt_tpu.index import VocabHEIndex
+    assert VocabHEIndex.load(out).n_images == 10
+
+
+def test_vocab_tree_retriever_loaded_index_defect(feature_db, tmp_path):
+    """Copied from cvt_tpu (its cli.py:316): a database image that a
+    loaded index does not hold makes add_image raise, in both CLIs."""
+    db_path, _, index = feature_db
+    with FeatureDatabase(db_path) as db:
+        extra = str(tmp_path / "extra.sqlite")
+        with FeatureDatabase(extra) as out:
+            FeatureDatabase.merge(db, FeatureDatabase(":memory:"), out)
+            iid = out.add_image("image_new")
+            out.write_descriptors(iid, db.read_descriptors(1))
+            out.commit()
+    args = ("vocab_tree_retriever", "--database", extra, "--vocab_index",
+            index)
+    for main, dev in ((jcli.main, ()), (tcli.main, ("--device", "cpu"))):
+        with pytest.raises(ValueError, match="loaded VocabHEIndex"):
+            _run(main, *args, *dev)
+
+
+def test_vocab_tree_retriever_runs_without_jax(feature_db):
+    db_path, qlist, index = feature_db
+    code = (BLOCK + "; import runpy; sys.argv = ['cli'] + sys.argv[1:]; "
+            "runpy.run_module('cvt_tpu_torch.cli', run_name='__main__')")
+    r = _python(code, "vocab_tree_retriever", "--database", db_path,
+                "--vocab_index", index, "--query_image_list", qlist,
+                "--topk", "2", "--device", "cpu")
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "  image_name=image_007" in r.stdout
