@@ -106,6 +106,35 @@
    a FeatureDatabase (io/database.py) holding 8 indexed images and 8
    query images, with --vocab_index at the phase's saved index: its
    ranked names must equal the in-process query_batch's.
+14. SIFT extraction at the vlindex operating point (sift.h:44-113:
+   first octave -1, 3 scales, peak 0.02/3, edge 10; 2 orientations,
+   RootSIFT) on procedural_images 640 x 480: extract_sift at K 8,192,
+   B 8 and at K 2,048, B 16. Times per batch (CUDA events, median of 7
+   after a warm call), images/s, keypoints per image, peak memory.
+   Asserts: shapes, descriptor norms 1 +- 1e-3, frames inside the image,
+   > 500 valid keypoints per image at K 2,048, and the card against the
+   CPU on 2 images of 320 x 240 at K 1,024 (>= 98% of the CPU's valid
+   keypoints matched within 0.01 px and 1e-3 rad, descriptor cosine >=
+   0.999: the CPU parity tests' tolerance). The torch.profiler list of the
+   top device operations of one K 8,192 batch is printed last.
+15. Retrieval over extracted features: 512 procedural images (8 seeded
+   chunks of 64) at K 2,048 (~1M descriptors) in an ImageRetrievalIndex
+   (exact FlatIndex); 64 re-rendered views of every 8th image (seeded
+   similarity: scale 0.85-1.15, shift +-24 px, rotation +-5 degrees;
+   bilinear resampling, gain, offset, noise) searched with rerank None /
+   svf / ransac, topk 10. Asserts: ids in range, finite scores, recall@1
+   of the source image >= 0.90 with svf; an index on the CPU holding the
+   card's features ranks 4 queries as the card (the near-tie rule of step
+   12). Then VocabHEIndex (W 65,536, hierarchical 256 x 256, trained on
+   400,000 of the corpus's descriptors, iters 10) over the same images,
+   query_batch for the 64 views at probes 2 / 8 / exact and probes 8 with
+   verify 10 (gate: ids in range, finite scores). Times: extraction
+   images/s, add_image per image, per query image in each mode. The
+   three kernels' counts, zeroed before steps 14 and 15, stay 0.
+16. `python -m cvt_tpu_torch.cli feature_extractor` on 16 uint8 images
+   (with --database) and on 4 views, then `cli retrieve`, as
+   subprocesses: the ranked names must equal the in-process extract_sift
+   -> ImageRetrievalIndex.search results.
 
 Every ADC kernel-against-twin check demands segpack and tiletop bitwise
 equal, except that a row whose norm/qs lies within 1e-4 of a half-integer
@@ -151,6 +180,18 @@ VOCAB_W, VOCAB_IMAGES, VOCAB_PER_IMAGE, VOCAB_TRAIN = 65_536, 1024, 512, \
     400_000
 VOCAB_EVERY, VOCAB_KQ, VOCAB_TOPK, VOCAB_VERIFY = 8, 128, 5, 10
 VOCAB_PROBES, VOCAB_CPU_Q, VOCAB_CLI_Q, VOCAB_RTOL = (2, 8, 0), 8, 8, 1e-5
+# SIFT extraction at the vlindex operating point (sift.h:44-113,
+# BENCH_FEATURES.md): K 8,192 at B 8 and K 2,048 at B 16, 640 x 480
+FEAT_H, FEAT_W, FEAT_RUNS, FEAT_REPS = 480, 640, ((8192, 8), (2048, 16)), 7
+FEAT_OPTS = dict(first_octave=-1, n_scales=3, peak_threshold=0.02 / 3,
+                 edge_threshold=10.0, n_orientations=2, rootsift=True)
+FEAT_CPU_B, FEAT_CPU_H, FEAT_CPU_W, FEAT_CPU_K = 2, 240, 320, 1024
+# retrieval over extracted features: 512 images at K 2,048, 64 views of
+# every 8th, the app's defaults (topk 10, rerank depth 10)
+RET_IMAGES, RET_K, RET_B, RET_EVERY, RET_TOPK, RET_CPU_Q = 512, 2048, 16, \
+    8, 10, 4
+RET_RERANKS = (None, "svf", "ransac")
+FEAT_CLI_IMAGES, FEAT_CLI_Q = 16, 4
 # H100 SXM data sheet: dense int8 tensor-core rate, HBM3 bandwidth
 PEAK_INT8_OPS, HBM_BYTES_PER_S = 1.979e15, 3.35e12
 SASS_CLASSES = ("IMMA", "IGMMA", "IDP4A")
@@ -1042,13 +1083,10 @@ def phase_vocab(stamp: str) -> dict:
     saved file's path for the CLI step."""
     import tempfile
     from cvt_tpu_torch.index import VocabHEIndex
-    from cvt_tpu_torch.ops.kernels import adc_scan as T
-    from cvt_tpu_torch.ops.kernels import ivf_scan as V
     t_phase = time.perf_counter()
     desc, frames, q, qf, src, train = vocab_data()
     res = {"data_s": time.perf_counter() - t_phase}
-    T.adc_segmin.launches = T.adc_segmin_cached.launches = 0
-    V.ivf_pages_segmin.launches = 0
+    zero_launch_counts()
     idx = VocabHEIndex(n_words=VOCAB_W, probes=8, device=DEV)
     assert idx.hierarchical
     t0 = time.perf_counter()
@@ -1090,9 +1128,7 @@ def phase_vocab(stamp: str) -> dict:
                            (ids[:, :VOCAB_TOPK] == src[:, None]).any(1))),
                        "ms_per_image": dt / len(src) * 1e3}
     torch.cuda.synchronize()
-    res["launches"] = {"adc_segmin": T.adc_segmin.launches,
-                       "adc_segmin_cached": T.adc_segmin_cached.launches,
-                       "ivf_page": V.ivf_pages_segmin.launches}
+    res["launches"] = launch_counts()
     for label in ("probes 8", f"probes 8 + verify {VOCAB_VERIFY}"):
         assert runs[label]["recall_at_1"] >= 0.90, (label, runs[label])
     assert not any(res["launches"].values()), res["launches"]
@@ -1227,6 +1263,443 @@ def run_vocab(stamp: str) -> dict:
           f"clock; vocabulary phase {vb['phase_s']:.1f} s {stamp}")
     vb["cli"] = cli
     return vb
+
+
+def launch_counts() -> dict:
+    from cvt_tpu_torch.ops.kernels import adc_scan as T
+    from cvt_tpu_torch.ops.kernels import ivf_scan as V
+    return {"adc_segmin": T.adc_segmin.launches,
+            "adc_segmin_cached": T.adc_segmin_cached.launches,
+            "ivf_page": V.ivf_pages_segmin.launches}
+
+
+def zero_launch_counts() -> None:
+    from cvt_tpu_torch.ops.kernels import adc_scan as T
+    from cvt_tpu_torch.ops.kernels import ivf_scan as V
+    T.adc_segmin.launches = T.adc_segmin_cached.launches = 0
+    V.ivf_pages_segmin.launches = 0
+
+
+def cuda_median_ms(fn, reps: int) -> tuple[float, list]:
+    """Median milliseconds of `reps` calls, each between two CUDA events,
+    after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), times
+
+
+def procedural_corpus(n: int, seed: int, chunk: int = 64) -> np.ndarray:
+    """procedural_images in chunks of `chunk` (seeds seed*1000 + chunk
+    index), generated by one thread per chunk: numpy releases the GIL in
+    its array passes."""
+    from concurrent.futures import ThreadPoolExecutor
+    from cvt_tpu_torch.io.datasets import procedural_images
+    starts = range(0, n, chunk)
+    with ThreadPoolExecutor(min(8, len(starts))) as pool:
+        parts = list(pool.map(lambda c: procedural_images(
+            min(chunk, n - c), FEAT_H, FEAT_W, seed=seed * 1000 + c // chunk),
+            starts))
+    return np.concatenate(parts)
+
+
+def render_views(images: np.ndarray, seed: int) -> np.ndarray:
+    """One re-rendered view per image: a seeded similarity about the
+    centre (scale 0.85-1.15, shift +-24 px, rotation +-5 degrees),
+    bilinear resampling with clamped borders, gain 0.8-1.2, offset +-0.05
+    and Gaussian noise of 0.01, clipped to [0, 1]."""
+    rng = np.random.default_rng(seed)
+    n, h, w = images.shape
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    out = np.empty_like(images)
+    for i in range(n):
+        s = rng.uniform(0.85, 1.15)
+        th = np.deg2rad(rng.uniform(-5.0, 5.0))
+        tx, ty = rng.uniform(-24.0, 24.0, 2)
+        du = xx - (w - 1) / 2 - tx
+        dv = yy - (h - 1) / 2 - ty
+        x = (w - 1) / 2 + (np.cos(th) * du + np.sin(th) * dv) / s
+        y = (h - 1) / 2 + (-np.sin(th) * du + np.cos(th) * dv) / s
+        x0 = np.clip(np.floor(x).astype(np.int64), 0, w - 2)
+        y0 = np.clip(np.floor(y).astype(np.int64), 0, h - 2)
+        fx = np.clip(x - x0, 0.0, 1.0)
+        fy = np.clip(y - y0, 0.0, 1.0)
+        im = images[i]
+        v = ((1 - fy) * ((1 - fx) * im[y0, x0] + fx * im[y0, x0 + 1])
+             + fy * ((1 - fx) * im[y0 + 1, x0] + fx * im[y0 + 1, x0 + 1]))
+        v = v * rng.uniform(0.8, 1.2) + rng.uniform(-0.05, 0.05)
+        out[i] = np.clip(v + rng.normal(0.0, 0.01, (h, w)), 0.0, 1.0)
+    return out
+
+
+def feature_match(want, got, px: float = 0.01, rad: float = 1e-3):
+    """Share of `want`'s valid keypoints matched by a valid keypoint of
+    `got` (x, y, sigma within px, angle within rad) and the least
+    descriptor cosine over the matches: the CPU parity tests' measure
+    (tests/test_torch_features.py)."""
+    matched, total, cos = 0, 0, 1.0
+    for b in range(want.valid.shape[0]):
+        vw, vg = want.valid[b].cpu().numpy(), got.valid[b].cpu().numpy()
+        fw = want.frames[b].cpu().numpy()[vw]
+        fg = got.frames[b].cpu().numpy()[vg]
+        dw = want.descriptors[b].cpu().numpy()[vw]
+        dg = got.descriptors[b].cpu().numpy()[vg]
+        for i in range(len(fw)):
+            total += 1
+            ok = ((np.abs(fg[:, :3] - fw[i, :3]).max(1) <= px)
+                  & (np.abs(np.angle(np.exp(1j * (fg[:, 3] - fw[i, 3]))))
+                     <= rad))
+            if ok.any():
+                matched += 1
+                cos = min(cos, float(dw[i] @ dg[np.argmax(ok)]))
+    return matched / max(total, 1), cos, total
+
+
+def check_features(f, b: int, k: int, min_valid: int = 0) -> np.ndarray:
+    """Shapes, unit descriptors, frames inside the image; returns the
+    valid keypoints per image."""
+    assert tuple(f.frames.shape) == (b, k, 4), f.frames.shape
+    assert tuple(f.descriptors.shape) == (b, k, 128), f.descriptors.shape
+    v = f.valid
+    n = v.sum(-1).cpu().numpy()
+    assert (n > min_valid).all(), n
+    fr = f.frames[v]
+    assert bool(torch.isfinite(fr).all())
+    assert bool(((fr[:, 0] >= 0) & (fr[:, 0] < FEAT_W) & (fr[:, 1] >= 0)
+                 & (fr[:, 1] < FEAT_H)).all()), "frame outside the image"
+    norms = torch.linalg.vector_norm(f.descriptors[v], dim=-1)
+    err = float(torch.abs(norms - 1.0).max())
+    assert err <= 1e-3, err
+    return n
+
+
+def phase_extract(stamp: str) -> dict:
+    """Step 14: extract_sift at the operating point, times, memory, and
+    the card against the CPU on small images."""
+    from cvt_tpu_torch.features import extract_sift
+    from cvt_tpu_torch.io.datasets import procedural_images
+    t_phase = time.perf_counter()
+    imgs = procedural_images(max(b for _, b in FEAT_RUNS), FEAT_H, FEAT_W,
+                             seed=SEED)
+    res = {"runs": {}}
+    zero_launch_counts()
+    for k, b in FEAT_RUNS:
+        x = torch.from_numpy(imgs[:b]).to(DEV)
+
+        def run():
+            return extract_sift(x, max_features=k, **FEAT_OPTS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, times = cuda_median_ms(run, FEAT_REPS)
+        f = run()
+        n = check_features(f, b, k, 500 if k == 2048 else 0)
+        res["runs"][(k, b)] = {
+            "ms": ms, "times": times, "images_per_s": b / ms * 1e3,
+            "kp_mean": float(n.mean()), "kp_min": int(n.min()),
+            "kp_max": int(n.max()),
+            "max_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    small = procedural_images(FEAT_CPU_B, FEAT_CPU_H, FEAT_CPU_W,
+                              seed=SEED + 2)
+    cpu = extract_sift(small, max_features=FEAT_CPU_K, device="cpu",
+                       **FEAT_OPTS)
+    gpu = extract_sift(small, max_features=FEAT_CPU_K, device=DEV,
+                       **FEAT_OPTS)
+    share, cos, total = feature_match(cpu, gpu)
+    assert share >= 0.98 and cos >= 0.999, (share, cos)
+    res["cpu"] = {"share": share, "cos": cos, "total": total,
+                  "n_cpu": int(cpu.n_valid.sum()),
+                  "n_gpu": int(gpu.n_valid.sum())}
+    res["launches"] = launch_counts()
+    assert not any(res["launches"].values()), res["launches"]
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["_profile_input"] = torch.from_numpy(imgs[:FEAT_RUNS[0][1]]).to(DEV)
+    return res
+
+
+def names_to_ids(names) -> list:
+    return [int(n[4:]) for n in names]
+
+
+def phase_retrieval(stamp: str) -> dict:
+    """Step 15: ImageRetrievalIndex over 512 extracted images, queried
+    with 64 re-rendered views in each rerank mode; the CPU against the
+    card on 4 queries; VocabHEIndex on the same features."""
+    from cvt_tpu_torch.apps import ImageRetrievalIndex
+    from cvt_tpu_torch.features import extract_sift
+    from cvt_tpu_torch.index import VocabHEIndex
+    t_phase = time.perf_counter()
+    db = procedural_corpus(RET_IMAGES, SEED + 1)
+    src = np.arange(0, RET_IMAGES, RET_EVERY)
+    views = render_views(db[src], SEED + 3)
+    res = {"data_s": time.perf_counter() - t_phase}
+    zero_launch_counts()
+    opts = dict(max_features=RET_K, **FEAT_OPTS)
+    feats = []
+    t0 = time.perf_counter()
+    for lo in range(0, RET_IMAGES, RET_B):
+        feats.append(extract_sift(torch.from_numpy(db[lo:lo + RET_B]).to(DEV),
+                                  **opts))
+    qfeats = [extract_sift(torch.from_numpy(views[lo:lo + RET_B]).to(DEV),
+                           **opts) for lo in range(0, len(src), RET_B)]
+    torch.cuda.synchronize()
+    res["extract_images_per_s"] = (RET_IMAGES + len(src)) / (
+        time.perf_counter() - t0)
+    idx = ImageRetrievalIndex(device=DEV)
+    t0 = time.perf_counter()
+    for i in range(RET_IMAGES):
+        idx.add_image(feats[i // RET_B], name=f"img_{i:04d}",
+                      batch_index=i % RET_B)
+    idx._finalize()
+    torch.cuda.synchronize()
+    res["add_ms_per_image"] = (time.perf_counter() - t0) / RET_IMAGES * 1e3
+    res["n_descriptors"] = idx.index.ntotal
+    res["kp_per_view"] = float(np.mean([int(f.n_valid.sum()) for f in qfeats])
+                               / RET_B)
+
+    def query(index, j, rerank):
+        return index.search(qfeats[j // RET_B], batch_index=j % RET_B,
+                            topk=RET_TOPK, rerank=rerank)
+    res["modes"] = {}
+    for rerank in RET_RERANKS:
+        query(idx, 0, rerank)                                   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [query(idx, j, rerank) for j in range(len(src))]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ids = [names_to_ids(n) for n, _ in out]
+        assert all(len(r) == RET_TOPK and min(r) >= 0
+                   and max(r) < RET_IMAGES for r in ids), rerank
+        assert all(np.isfinite(sc).all() for _, sc in out), rerank
+        res["modes"][str(rerank)] = {
+            "recall_at_1": float(np.mean([r[0] == s
+                                          for r, s in zip(ids, src)])),
+            "recall_at_5": float(np.mean([s in r[:5]
+                                          for r, s in zip(ids, src)])),
+            "ms_per_query": dt / len(src) * 1e3,
+            "_ids": ids, "_scores": [sc for _, sc in out]}
+    assert res["modes"]["svf"]["recall_at_1"] >= 0.90, res["modes"]["svf"]
+
+    # the same features in an index on the CPU rank 4 queries as the card
+    cpu = ImageRetrievalIndex(device="cpu")
+    for i in range(RET_IMAGES):
+        f = feats[i // RET_B]
+        cpu.add_image(type(f)(*(a[i % RET_B:i % RET_B + 1].cpu() for a in (
+            f.frames, f.descriptors, f.response, f.valid))),
+            name=f"img_{i:04d}")
+    t0 = time.perf_counter()
+    c_out = [cpu.search(type(qfeats[0])(*(a[j % RET_B:j % RET_B + 1].cpu()
+                                          for a in (
+        qfeats[j // RET_B].frames, qfeats[j // RET_B].descriptors,
+        qfeats[j // RET_B].response, qfeats[j // RET_B].valid))),
+        topk=RET_TOPK, rerank="svf") for j in range(RET_CPU_Q)]
+    res["cpu_s_per_query"] = (time.perf_counter() - t0) / RET_CPU_Q
+    card = res["modes"]["svf"]
+    res["cpu_excused"] = rankings_agree(
+        np.array(card["_ids"][:RET_CPU_Q]),
+        np.array(card["_scores"][:RET_CPU_Q]),
+        np.array([names_to_ids(n) for n, _ in c_out]),
+        np.array([sc for _, sc in c_out]), RET_TOPK)
+    del cpu
+
+    # the vocabulary tree on the same corpus and views
+    rng = np.random.default_rng(SEED)
+    db_desc = [f.descriptors[f.valid] for f in feats]
+    all_desc = torch.cat(db_desc)
+    train = torch.from_numpy(rng.choice(all_desc.shape[0], VOCAB_TRAIN,
+                                        replace=False)).to(DEV)
+    vidx = VocabHEIndex(n_words=VOCAB_W, probes=8, device=DEV)
+    t0 = time.perf_counter()
+    vidx.train(torch.Generator().manual_seed(SEED), all_desc[train],
+               iters=10)
+    torch.cuda.synchronize()
+    res["vocab_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(RET_IMAGES):
+        f, r = feats[i // RET_B], i % RET_B
+        v = f.valid[r]
+        vidx.add_image(f.descriptors[r][v], name=f"img_{i:04d}",
+                       geometries=f.frames[r][v].cpu().numpy())
+    vidx.prepare()
+    torch.cuda.synchronize()
+    res["vocab_add_prepare_s"] = time.perf_counter() - t0
+    qd = torch.cat([f.descriptors for f in qfeats])
+    qv = torch.cat([f.valid for f in qfeats])
+    qg = torch.cat([f.frames for f in qfeats])
+    res["vocab"] = {}
+    for probes, verify in [(p, 0) for p in VOCAB_PROBES] + [(8, VOCAB_VERIFY)]:
+        vidx.probes = probes
+        kw = dict(topk=RET_TOPK, valid=qv, verify=verify,
+                  geometries=qg if verify else None,
+                  image_extent=float(FEAT_W))
+        vidx.query_batch(qd, **kw)                               # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, sc, _ = vidx.query_batch(qd, **kw)
+        dt = time.perf_counter() - t0
+        label = ("exact" if probes == 0 else f"probes {probes}") + (
+            f" + verify {verify}" if verify else "")
+        assert ids.shape == (len(src), RET_TOPK), label
+        assert ids.min() >= 0 and ids.max() < RET_IMAGES, label
+        assert np.isfinite(sc).all(), label
+        res["vocab"][label] = {
+            "recall_at_1": float(np.mean(ids[:, 0] == src)),
+            "recall_at_5": float(np.mean((ids[:, :5] == src[:, None]).any(1))),
+            "ms_per_image": dt / len(src) * 1e3}
+    res["launches"] = launch_counts()
+    assert not any(res["launches"].values()), res["launches"]
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def run_feature_cli(tmp: str) -> dict:
+    """Step 16: `cli feature_extractor` on 16 uint8 images (with
+    --database) and on 4 views, then `cli retrieve`, as subprocesses; the
+    ranked names must equal the in-process extract_sift ->
+    ImageRetrievalIndex results on the same uint8 images."""
+    from cvt_tpu_torch.apps import ImageRetrievalIndex
+    from cvt_tpu_torch.features import extract_sift
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    from cvt_tpu_torch.io.datasets import procedural_images
+    db = procedural_images(FEAT_CLI_IMAGES, FEAT_H, FEAT_W, seed=SEED + 4)
+    src = np.arange(0, FEAT_CLI_IMAGES, FEAT_CLI_IMAGES // FEAT_CLI_Q)
+    u8 = {"db": (db * 255).round().astype(np.uint8),
+          "q": (render_views(db[src], SEED + 5) * 255).round().astype(
+              np.uint8)}
+    paths = {}
+    for name, a in u8.items():
+        paths[name] = os.path.join(tmp, f"{name}.npy")
+        np.save(paths[name], a)
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def cli(*args) -> str:
+        run = subprocess.run([sys.executable, "-m", "cvt_tpu_torch.cli",
+                              *args], capture_output=True, text=True,
+                             cwd=root, timeout=300)
+        if run.returncode:
+            raise RuntimeError(f"cli {args[0]} exited {run.returncode}: "
+                               f"{run.stderr[-2000:]}")
+        return run.stdout
+    t0 = time.perf_counter()
+    out = {"extract_db": cli("feature_extractor", "--images", paths["db"],
+                             "--database", os.path.join(tmp, "f.sqlite"),
+                             "--out", os.path.join(tmp, "f.npz")).strip(),
+           "extract_q": cli("feature_extractor", "--images", paths["q"],
+                            "--out", os.path.join(tmp, "q.npz")).strip()}
+    lines = cli("retrieve", "--db", os.path.join(tmp, "f.npz"), "--query",
+                os.path.join(tmp, "q.npz")).splitlines()
+    out["wall_s"] = time.perf_counter() - t0
+    got = [json.loads(line)["results"] for line in lines]
+    with FeatureDatabase(os.path.join(tmp, "f.sqlite")) as fdb:
+        assert len(list(fdb.iter_images())) == FEAT_CLI_IMAGES
+    feats = extract_sift(u8["db"].astype(np.float32) / 255.0,
+                         max_features=512, rootsift=True, device=DEV)
+    qfeats = extract_sift(u8["q"].astype(np.float32) / 255.0,
+                          max_features=512, rootsift=True, device=DEV)
+    idx = ImageRetrievalIndex(device=DEV)
+    for b in range(FEAT_CLI_IMAGES):
+        idx.add_image(feats, batch_index=b)
+    want = [idx.search(qfeats, batch_index=b, topk=RET_TOPK)[0]
+            for b in range(FEAT_CLI_Q)]
+    assert got == want, (got, want)
+    out["top1"] = [r[0] for r in got]
+    out["recall_at_1"] = float(np.mean([r[0] == f"img_{s}"
+                                        for r, s in zip(got, src)]))
+    return out
+
+
+def feature_profile(x: torch.Tensor, k: int, top: int = 12) -> dict:
+    """torch.profiler over one extract_sift batch: the top device
+    operations by self device time, their sum and the wall clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cvt_tpu_torch.features import extract_sift
+    extract_sift(x, max_features=k, **FEAT_OPTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        extract_sift(x, max_features=k, **FEAT_OPTS)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    if not ops:
+        ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages() if e.self_device_time_total > 0]
+    ops.sort(key=lambda o: -o[1])
+    total = sum(o[1] for o in ops)
+    return {"wall_ms": wall, "device_ms": total, "top": ops[:top]}
+
+
+def run_features(stamp: str) -> dict:
+    """Steps 14-16: extraction, retrieval over extracted features and the
+    two commands, with their prints; returns what the last profile
+    needs."""
+    import tempfile
+    t_all = time.perf_counter()
+    ex = phase_extract(stamp)
+    for (k, b), r in ex["runs"].items():
+        print(f"extract_sift {FEAT_W}x{FEAT_H} B={b} K={k} (first octave -1, "
+              f"3 scales, peak 0.02/3, edge 10, 2 orientations, RootSIFT): "
+              f"{r['ms']:.2f} ms/batch (median of {FEAT_REPS}; "
+              f"{min(r['times']):.2f}-{max(r['times']):.2f}), "
+              f"{r['images_per_s']:.1f} images/s, keypoints/image mean "
+              f"{r['kp_mean']:.1f} (min {r['kp_min']}, max {r['kp_max']}), "
+              f"max memory allocated {r['max_mem_gb']:.2f} GB {stamp}")
+    c = ex["cpu"]
+    print(f"extract_sift card vs CPU ({FEAT_CPU_B} x {FEAT_CPU_W}x"
+          f"{FEAT_CPU_H}, K {FEAT_CPU_K}): {c['share']:.4f} of the CPU's "
+          f"{c['total']} valid keypoints matched within 0.01 px / 1e-3 rad, "
+          f"descriptor cosine >= {c['cos']:.6f}; valid {c['n_gpu']} card, "
+          f"{c['n_cpu']} CPU {stamp}")
+    print(f"launches during extraction: {ex['launches']}; phase "
+          f"{ex['phase_s']:.1f} s {stamp}")
+    rt = phase_retrieval(stamp)
+    print(f"retrieval corpus: {RET_IMAGES} procedural images {FEAT_W}x"
+          f"{FEAT_H} at K {RET_K} -> {rt['n_descriptors']} descriptors in "
+          f"the flat store; {RET_IMAGES // RET_EVERY} views (scale 0.85-1.15,"
+          f" shift +-24 px, rotation +-5 deg, gain, noise), "
+          f"{rt['kp_per_view']:.0f} keypoints/view; data {rt['data_s']:.1f} "
+          f"s; extraction {rt['extract_images_per_s']:.1f} images/s (B "
+          f"{RET_B}, synchronised wall clock); add_image "
+          f"{rt['add_ms_per_image']:.3f} ms/image {stamp}")
+    for mode, r in rt["modes"].items():
+        print(f"ImageRetrievalIndex.search rerank={mode} topk {RET_TOPK}: "
+              f"recall@1 {r['recall_at_1']:.4f} recall@5 "
+              f"{r['recall_at_5']:.4f}, {r['ms_per_query']:.2f} ms per query "
+              f"image (synchronised wall clock) {stamp}")
+    print(f"retrieval on the CPU ({RET_CPU_Q} queries, svf, the card's "
+          f"features) ranks as the card: {rt['cpu_excused']} near-tie ranks "
+          f"swapped, {rt['cpu_s_per_query']:.2f} s per query on the CPU "
+          f"{stamp}")
+    print(f"vocab tree on extracted features: W={VOCAB_W}, train on "
+          f"{VOCAB_TRAIN} (iters 10) {rt['vocab_train_s']:.1f} s, add + "
+          f"prepare {rt['vocab_add_prepare_s']:.1f} s {stamp}")
+    for label, r in rt["vocab"].items():
+        print(f"vocab query_batch on extracted features, {label}: recall@1 "
+              f"{r['recall_at_1']:.4f} recall@5 {r['recall_at_5']:.4f}, "
+              f"{r['ms_per_image']:.3f} ms/image {stamp}")
+    print(f"launches during retrieval: {rt['launches']}; phase "
+          f"{rt['phase_s']:.1f} s {stamp}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cl = run_feature_cli(tmp)
+    print(f"cli feature_extractor: {cl['extract_db']!r} / "
+          f"{cl['extract_q']!r}; cli retrieve ranked {FEAT_CLI_Q} views as "
+          f"in-process (top-1 {cl['top1']}, recall@1 "
+          f"{cl['recall_at_1']:.2f}), {cl['wall_s']:.1f} s process wall "
+          f"clock {stamp}")
+    print(f"steps 14-16 took {time.perf_counter() - t_all:.1f} s {stamp}")
+    return {"profile_input": ex.pop("_profile_input")}
 
 
 def print_compare(what: str, cmp: dict, stamp: str) -> None:
@@ -1476,6 +1949,7 @@ def main() -> int:
     sq = run_sq(base_dev, q_dev, stamp)
     sv = run_serving(idx, q_dev, gt, ids_ref, base_dev, stamp)
     run_vocab(stamp)
+    feat = run_features(stamp)
     # last: the profiler leaves its hooks behind, which slows the host side
     # of whatever runs after it
     from cvt_tpu_torch.ops.kernels import adc_scan as T
@@ -1486,6 +1960,13 @@ def main() -> int:
         print(f"{name} at the flat path, split (profiler, device ms per "
               f"call): scan kernel {s['scan_ms']:.3f}, tiletop_kernel "
               f"{s['tiletop_ms']:.3f} {stamp}")
+    k, b = FEAT_RUNS[0]
+    prof = feature_profile(feat["profile_input"], k)
+    print(f"extract_sift B={b} K={k} under torch.profiler: wall "
+          f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms; top "
+          f"device operations (self ms, calls): " + "; ".join(
+              f"{name[:60]} {ms:.3f} ({n})" for name, ms, n in prof["top"])
+          + f" {stamp}")
 
     seg_err = {str(s): c["max_abs_err"] for s, c in segv.items()}
 

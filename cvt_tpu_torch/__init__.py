@@ -10,8 +10,8 @@ the CPU and launches the kernel (or raises) for tensors on the card.
 This package imports `torch` and numpy only, never `jax` or `cvt_tpu`.
 
 Subpackages:
-  io        fvecs/bvecs/ivecs, SIFT-like synthetic data, the SQLite
-            feature database
+  io        fvecs/bvecs/ivecs, SIFT-like synthetic data, procedural
+            images, the SQLite feature database
   ops       normalize, pairwise distances, top-k with lax.top_k's tie
             order, flat / blocked / hierarchical k-means; ops/kernels
             the flat ADC and IVF page scan kernels and their twins
@@ -20,7 +20,13 @@ Subpackages:
             FlatADCIndex (PQ/OPQ codes), IVFADCIndex (inverted lists of
             residual PQ codes), VocabHEIndex (vocabulary tree + Hamming
             embedding over images)
-  match     2-D solvers and vote-and-verify spatial verification
+  features  Gaussian scale space, DoG / Hessian detection, orientations,
+            SIFT / RootSIFT / DSP-SIFT descriptors, affine shapes,
+            extract_sift and the batched extraction pipeline
+  match     2-D solvers, SVF, batched RANSAC and vote-and-verify
+            spatial verification
+  apps      ImageRetrievalIndex: per-descriptor kNN votes re-ranked by
+            SVF or RANSAC
   parallel  device meshes, ShardedADCSearcher, MultiHostADCServer,
             QueryBatcher, sharded k-means over torch.distributed
   utils     recall@k, the device rule

@@ -8,6 +8,8 @@ Commands:
   pq_train              train a PQ/OPQ codebook
   build_adc             encode a database into a flat ADC index
   search_adc            query a flat ADC index, report recall if GT given
+  feature_extractor     extract SIFT features from an image .npy
+  retrieve              rank database images for query images (vote + rerank)
   vocab_tree_retriever  index + rank database images by vocab tree
   serve                 sharded query server over a saved flat ADC index
 
@@ -115,6 +117,60 @@ def _cmd_search_adc(args):
         out["recall@1"] = recall_at_k(i, gt[:, 0], k=1)
         out[f"recall@{args.k}"] = recall_at_k(i, gt[:, 0], k=args.k)
     print(json.dumps(out))
+
+
+def _cmd_feature_extractor(args):
+    from cvt_tpu_torch.features import extract_sift
+    images = np.load(args.images)          # [B, H, W] float or uint8
+    if images.dtype == np.uint8:
+        images = images.astype(np.float32) / 255.0
+    feats = extract_sift(images, max_features=args.max_features,
+                         rootsift=args.rootsift, device=args.device)
+    frames = feats.frames.cpu().numpy()
+    desc = feats.descriptors.cpu().numpy()
+    valid = feats.valid.cpu().numpy()
+    np.savez(args.out, frames=frames, descriptors=desc, valid=valid)
+    if args.database:
+        # colmap.cc feature_extractor semantics: features land in the
+        # SQLite FeatureDatabase the matcher commands consume
+        from cvt_tpu_torch.io.database import FeatureDatabase
+        with FeatureDatabase(args.database) as db:
+            for b in range(frames.shape[0]):
+                iid = db.add_image(f"image_{b:06d}",
+                                   width=images.shape[2],
+                                   height=images.shape[1])
+                v = valid[b]
+                db.write_keypoints(iid, frames[b][v])
+                db.write_descriptors(iid, desc[b][v])
+            db.commit()
+    n = valid.sum(-1)
+    print(f"extracted features for {images.shape[0]} images "
+          f"(keypoints/image: min {n.min()}, mean {n.mean():.1f}, "
+          f"max {n.max()})")
+
+
+def _cmd_retrieve(args):
+    """Index every image of a feature_extractor .npz and rank them for
+    each image of another (the hnsw_sifts_retrieval flow); one JSON line
+    per query."""
+    import types
+    from cvt_tpu_torch.apps import ImageRetrievalIndex
+
+    def load(path):
+        z = np.load(path)
+        return types.SimpleNamespace(frames=z["frames"],
+                                     descriptors=z["descriptors"],
+                                     valid=z["valid"])
+    feats = load(args.db)
+    idx = ImageRetrievalIndex(device=args.device)
+    for b in range(feats.frames.shape[0]):
+        idx.add_image(feats, batch_index=b)
+    qfeats = load(args.query)
+    for b in range(qfeats.frames.shape[0]):
+        names, scores = idx.search(qfeats, batch_index=b, topk=args.topk,
+                                   rerank=args.rerank or None)
+        print(json.dumps({"query": b, "results": names,
+                          "scores": [float(s) for s in scores]}))
 
 
 def _cmd_vocab_tree_retriever(args):
@@ -341,6 +397,22 @@ def main(argv=None):
     g.add_argument("--queries", required=True)
     g.add_argument("--k", type=int, default=10)
     g.add_argument("--gt")
+
+    g = parser("feature_extractor", _cmd_feature_extractor)
+    g.add_argument("--images", required=True, help=".npy [B, H, W]")
+    g.add_argument("--max-features", type=int, default=512)
+    # as in cvt_tpu: store_true with default True, so always on
+    g.add_argument("--rootsift", action="store_true", default=True)
+    g.add_argument("--database", default=None,
+                   help="also write features into this FeatureDatabase")
+    g.add_argument("--out", required=True)
+
+    g = parser("retrieve", _cmd_retrieve)
+    g.add_argument("--db", required=True, help="features .npz from "
+                   "feature_extractor")
+    g.add_argument("--query", required=True)
+    g.add_argument("--topk", type=int, default=10)
+    g.add_argument("--rerank", default="svf")
 
     g = parser("vocab_tree_retriever", _cmd_vocab_tree_retriever)
     g.add_argument("--database", required=True)

@@ -1,6 +1,7 @@
-"""Dataset helpers: SIFT1M loader + a synthetic SIFT-like generator.
+"""Dataset helpers: SIFT1M loader, a synthetic SIFT-like generator and
+procedural images.
 
-Both are numpy and produce the same arrays as `cvt_tpu.io.datasets` for
+All are numpy and produce the same arrays as `cvt_tpu.io.datasets` for
 the same arguments, so the two packages can be held against each other on
 identical data.
 """
@@ -89,3 +90,64 @@ def synthetic_sift(n: int, d: int = 128, *, n_queries: int = 0,
             raise ValueError(f"unknown query_mode {query_mode!r}")
         return base, q
     return base
+
+
+def procedural_images(n: int, h: int = 480, w: int = 640, *,
+                      seed: int = 0, dtype=np.float32) -> np.ndarray:
+    """Feature-rich procedural grayscale images [n, h, w] in [0, 1].
+
+    The reference's feature tests extract on procedurally created
+    bitmaps (vlindex/src/feature/sift_test.cc:60-789); this is the
+    batched generator used for feature benchmarks and for dogfooding
+    real-SIFT-statistics descriptor corpora without any image download.
+
+    Construction: fractal value noise (bilinearly upsampled random
+    grids over ~6 octaves — multi-scale blobs that fire DoG/Hessian
+    extrema at every pyramid level) + random rectangle intensity steps
+    (corner features) + a smooth illumination field. Fully vectorized.
+    """
+    rng = np.random.default_rng(seed)
+    out = np.zeros((n, h, w), np.float32)
+
+    def up(grid, hh, ww):
+        # bilinear resize [n, gh, gw] -> [n, hh, ww] via np interp
+        gh, gw = grid.shape[1:]
+        ys = np.linspace(0, gh - 1, hh, dtype=np.float32)
+        xs = np.linspace(0, gw - 1, ww, dtype=np.float32)
+        y0 = np.minimum(ys.astype(np.int64), gh - 2)
+        x0 = np.minimum(xs.astype(np.int64), gw - 2)
+        fy = (ys - y0)[None, :, None]
+        fx = (xs - x0)[None, None, :]
+        g = grid
+        a = g[:, y0][:, :, x0]
+        b = g[:, y0][:, :, x0 + 1]
+        c = g[:, y0 + 1][:, :, x0]
+        d = g[:, y0 + 1][:, :, x0 + 1]
+        return ((1 - fy) * ((1 - fx) * a + fx * b)
+                + fy * ((1 - fx) * c + fx * d))
+
+    # fractal value noise: octave o has a (h, w)/2^o control grid
+    amp = 1.0
+    for o in range(6):
+        gh = max(2, h >> (o + 2))
+        gw = max(2, w >> (o + 2))
+        out += amp * up(rng.normal(size=(n, gh, gw)).astype(np.float32),
+                        h, w)
+        amp *= 1.35     # slight high-frequency emphasis: more corners
+    # random rectangle steps (sharp corners at every scale)
+    yy = np.arange(h, dtype=np.int32)[None, :, None]
+    xx = np.arange(w, dtype=np.int32)[None, None, :]
+    for _ in range(24):
+        y0s = rng.integers(0, h - 8, size=(n, 1, 1))
+        x0s = rng.integers(0, w - 8, size=(n, 1, 1))
+        hs = rng.integers(4, h // 2, size=(n, 1, 1))
+        ws = rng.integers(4, w // 2, size=(n, 1, 1))
+        a = rng.uniform(-1.2, 1.2, size=(n, 1, 1)).astype(np.float32)
+        mask = ((yy >= y0s) & (yy < y0s + hs)
+                & (xx >= x0s) & (xx < x0s + ws))
+        out += a * mask
+    # normalize each image to [0, 1]
+    mn = out.min(axis=(1, 2), keepdims=True)
+    mx = out.max(axis=(1, 2), keepdims=True)
+    out = (out - mn) / np.maximum(mx - mn, 1e-6)
+    return out.astype(dtype)

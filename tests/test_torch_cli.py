@@ -48,7 +48,15 @@ MODULES = ["cvt_tpu_torch.quant.sq", "cvt_tpu_torch.quant.pca",
            "cvt_tpu_torch.ops.topk", "cvt_tpu_torch.ops.kmeans",
            "cvt_tpu_torch.match", "cvt_tpu_torch.match.solvers",
            "cvt_tpu_torch.match.vote_verify",
-           "cvt_tpu_torch.index.vocab_he", "cvt_tpu_torch.io.database"]
+           "cvt_tpu_torch.index.vocab_he", "cvt_tpu_torch.io.database",
+           "cvt_tpu_torch.io.datasets", "cvt_tpu_torch.features",
+           "cvt_tpu_torch.features.scale_space",
+           "cvt_tpu_torch.features.detect",
+           "cvt_tpu_torch.features.descriptor",
+           "cvt_tpu_torch.features.affine", "cvt_tpu_torch.features.covdet",
+           "cvt_tpu_torch.features.pipeline", "cvt_tpu_torch.match.svf",
+           "cvt_tpu_torch.match.ransac", "cvt_tpu_torch.apps",
+           "cvt_tpu_torch.apps.retrieval"]
 
 
 def _python(code: str, *args, stdin: str | None = None):
@@ -302,3 +310,77 @@ def test_vocab_tree_retriever_runs_without_jax(feature_db):
                 "--topk", "2", "--device", "cpu")
     assert r.returncode == 0, r.stderr[-3000:]
     assert "  image_name=image_007" in r.stdout
+
+
+@pytest.fixture(scope="module")
+def image_files(tmp_path_factory):
+    """uint8 .npy files: 4 procedural database images and noisy copies of
+    the first 2 as queries, and cvt_tpu's feature_extractor outputs."""
+    from cvt_tpu.io.datasets import procedural_images
+    tmp = tmp_path_factory.mktemp("images")
+    rng = np.random.default_rng(6)
+    imgs = procedural_images(4, 64, 96, seed=3)
+    q = np.clip(imgs[:2] + rng.normal(0, 0.01, imgs[:2].shape), 0, 1)
+    paths = {}
+    for name, a in (("db", imgs), ("q", q)):
+        paths[name] = str(tmp / f"{name}.npy")
+        np.save(paths[name], (a * 255).round().astype(np.uint8))
+    lines = {}
+    for name in ("db", "q"):
+        lines[name] = _run(jcli.main, "feature_extractor", "--images",
+                           paths[name], "--out", str(tmp / f"j_{name}.npz"),
+                           "--database", str(tmp / f"j_{name}.sqlite"))
+    return tmp, paths, lines
+
+
+def test_feature_extractor_matches_reference(image_files):
+    """The port's command on the same .npy: the printed line, the .npz
+    keys and shapes, keypoints and descriptors (within the extractor's
+    tolerances, tests/test_torch_features.py) and the database rows."""
+    from test_torch_features import match_keypoints
+    import types
+    tmp, paths, want_lines = image_files
+    for name in ("db", "q"):
+        out, db = str(tmp / f"t_{name}.npz"), str(tmp / f"t_{name}.sqlite")
+        lines = _run(tcli.main, "feature_extractor", "--images",
+                     paths[name], "--out", out, "--database", db,
+                     "--device", "cpu")
+        assert lines == want_lines[name]
+        with np.load(out) as a, np.load(str(tmp / f"j_{name}.npz")) as b:
+            assert sorted(a.files) == sorted(b.files) == [
+                "descriptors", "frames", "valid"]
+            got, want = (types.SimpleNamespace(**{k: z[k] for k in z.files})
+                         for z in (a, b))
+        share, cos, _ = match_keypoints(want, got)
+        assert share >= 0.98 and cos >= 0.999, (share, cos)
+        with FeatureDatabase(db) as t_db, \
+                FeatureDatabase(str(tmp / f"j_{name}.sqlite")) as j_db:
+            assert [n for _, n in t_db.iter_images()] == \
+                [n for _, n in j_db.iter_images()]
+            for iid, _ in j_db.iter_images():
+                assert t_db.read_descriptors(iid).shape == \
+                    j_db.read_descriptors(iid).shape
+
+
+@pytest.mark.parametrize("rerank", ["svf", ""])
+def test_retrieve_matches_reference(image_files, rerank):
+    """Both `retrieve` commands on cvt_tpu's feature files print the same
+    JSON lines; on its own files the port ranks the same names, each
+    query's source image first."""
+    tmp, _, _ = image_files
+    args = ("retrieve", "--db", str(tmp / "j_db.npz"), "--query",
+            str(tmp / "j_q.npz"), "--topk", "3", "--rerank", rerank)
+    want = _run(jcli.main, *args)
+    assert _run(tcli.main, *args, "--device", "cpu") == want
+    if not (tmp / "t_db.npz").exists():
+        _run(tcli.main, "feature_extractor", "--images", str(tmp / "db.npy"),
+             "--out", str(tmp / "t_db.npz"), "--device", "cpu")
+        _run(tcli.main, "feature_extractor", "--images", str(tmp / "q.npy"),
+             "--out", str(tmp / "t_q.npz"), "--device", "cpu")
+    own = _run(tcli.main, "retrieve", "--db", str(tmp / "t_db.npz"),
+               "--query", str(tmp / "t_q.npz"), "--topk", "3", "--rerank",
+               rerank, "--device", "cpu")
+    rows = [json.loads(line) for line in own]
+    assert [r["results"] for r in rows] == \
+        [json.loads(line)["results"] for line in want]
+    assert [r["results"][0] for r in rows] == ["img_0", "img_1"]

@@ -14,6 +14,9 @@ import pytest
 import torch
 
 from cvt_tpu_torch import convert
+from cvt_tpu_torch.apps import ImageRetrievalIndex
+from cvt_tpu_torch.features import build_pyramid, extract_sift
+from cvt_tpu_torch.features.pipeline import FeatureExtractionPipeline
 from cvt_tpu_torch.index import FlatADCIndex, FlatIndex, IVFADCIndex
 from cvt_tpu_torch.ops.kmeans import kmeans
 from cvt_tpu_torch.parallel import init_distributed
@@ -25,6 +28,7 @@ RNG = np.random.default_rng(5)
 CB = RNG.normal(size=(4, 16, 8)).astype(np.float32)     # M 4, K 16, D 32
 ROT = np.linalg.qr(RNG.normal(size=(32, 32)))[0].astype(np.float32)
 X = RNG.normal(size=(64, 32)).astype(np.float32)
+IMG = RNG.random((1, 40, 48)).astype(np.float32)
 
 
 @pytest.fixture
@@ -56,7 +60,25 @@ ENTRY_POINTS = {
                                               device=dev),
     "kmeans": lambda p, dev: kmeans(torch.Generator().manual_seed(0), X, 4,
                                     iters=1, device=dev),
+    "build_pyramid": lambda p, dev: build_pyramid(IMG, device=dev)[0],
+    "extract_sift": lambda p, dev: extract_sift(IMG, max_features=8,
+                                                device=dev),
+    "ImageRetrievalIndex": lambda p, dev: ImageRetrievalIndex(device=dev),
+    "FeatureExtractionPipeline": lambda p, dev: FeatureExtractionPipeline(
+        None, device=dev).extract_fn(IMG),
 }
+
+
+def _device_of(obj) -> torch.device:
+    """Where an entry point's result lives: its `device`, else the device
+    of its first tensor (k-means centroids, features, pyramid levels)."""
+    dev = getattr(obj, "device", None)
+    if dev is not None:
+        return dev
+    for name in ("centroids", "frames", "gauss"):
+        if hasattr(obj, name):
+            return getattr(obj, name).device
+    raise AssertionError(f"no device on {type(obj).__name__}")
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -68,10 +90,7 @@ def test_entry_point_without_card_raises(no_card, pack, name):
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_entry_point_with_device_cpu_works(no_card, pack, name):
     obj = ENTRY_POINTS[name](pack, "cpu")
-    dev = getattr(obj, "device", None)
-    if dev is None:             # kmeans returns its result's tensors
-        dev = obj.centroids.device
-    assert dev == torch.device("cpu")
+    assert _device_of(obj) == torch.device("cpu")
 
 
 def test_cpu_tensors_keep_their_device(no_card):
@@ -85,6 +104,8 @@ def test_cpu_tensors_keep_their_device(no_card):
     assert ScalarQuantizer.train(x).device == torch.device("cpu")
     assert kmeans(torch.Generator().manual_seed(0), x, 4,
                   iters=1).centroids.device == torch.device("cpu")
+    feats = extract_sift(torch.from_numpy(IMG), max_features=8)
+    assert feats.frames.device == torch.device("cpu")
     # an explicit device wins over the tensor's
     with pytest.raises(RuntimeError, match='device="cpu"'):
         ProductQuantizer(torch.from_numpy(CB), device="cuda")
