@@ -192,6 +192,13 @@ RET_IMAGES, RET_K, RET_B, RET_EVERY, RET_TOPK, RET_CPU_Q = 512, 2048, 16, \
     8, 10, 4
 RET_RERANKS = (None, "svf", "ransac")
 FEAT_CLI_IMAGES, FEAT_CLI_Q = 16, 4
+# the matching front end (steps 17-18): K 8,192 is COLMAP's
+# SiftExtraction.max_num_features default; match_pairs' defaults follow
+# SiftMatchingOptions / TwoViewGeometryOptions
+MV_CAMS, MV_K, MV_W, MV_H, MV_F = 64, 8192, 1600, 1200, 1400.0
+MV_GENERAL, MV_FACADE, MV_DISTRACT, MV_TWINS = 16_000, 9000, 1024, 0.15
+MV_NOISE_PX, MV_DESC_NOISE, MV_CPU_PAIRS, MV_PROFILE_PAIRS = 0.5, 0.03, 16, 8
+MATCH_CLI_VIEWS, MATCH_CLI_WORDS = 16, 256
 # H100 SXM data sheet: dense int8 tensor-core rate, HBM3 bandwidth
 PEAK_INT8_OPS, HBM_BYTES_PER_S = 1.979e15, 3.35e12
 SASS_CLASSES = ("IMMA", "IGMMA", "IDP4A")
@@ -1702,6 +1709,603 @@ def run_features(stamp: str) -> dict:
     return {"profile_input": ex.pop("_profile_input")}
 
 
+def multiview_scene(seed: int):
+    """A seeded multi-view set at the matcher's full width: MV_CAMS
+    cameras on a 220-degree arc (radius 12, heights +-0.5) around a
+    volume of MV_GENERAL points (each seen within 60 degrees of its own
+    horizontal normal) and a planar facade of MV_FACADE points (3 units
+    out at -85 degrees, 10 x 6, facing out; it hides what lies behind it),
+    pinhole f = 1,400 at 1,600 x 1,200. Each image holds MV_K keypoints:
+    its visible projections with MV_NOISE_PX of noise (at most MV_K -
+    MV_DISTRACT of them, a random subset), then distractors at random
+    places; one nonnegative unit descriptor per point with per-view
+    noise, and a share of points whose descriptor is a near copy of
+    another's (repeated structure: some of their matches are wrong).
+    Returns (images: dicts of keypoints [K, 4], descriptors [K, 128],
+    point ids [K] (-1: distractor), rotation, centre; K [3, 3])."""
+    rng = np.random.default_rng(seed)
+    general = rng.uniform([-4, -2.5, -4], [4, 2.5, 4], (MV_GENERAL, 3))
+    th0 = np.deg2rad(-85.0)
+    n0 = np.array([np.sin(th0), 0.0, np.cos(th0)])          # facade normal
+    u0 = np.array([np.cos(th0), 0.0, -np.sin(th0)])         # its x axis
+    q0 = 3.0 * n0
+    fa, fb = rng.uniform(-5, 5, MV_FACADE), rng.uniform(-3, 3, MV_FACADE)
+    pts = np.concatenate([general, q0 + fa[:, None] * u0
+                          + fb[:, None] * np.array([0.0, 1.0, 0.0])])
+    facing_ang = np.concatenate([rng.uniform(-np.pi, np.pi, MV_GENERAL),
+                                 np.full(MV_FACADE, th0)])
+    desc = np.abs(rng.normal(size=(len(pts), D)))
+    twins = rng.choice(len(pts), int(MV_TWINS * len(pts)), replace=False)
+    desc[twins] = np.abs(desc[rng.permutation(twins)] + MV_DESC_NOISE
+                         * rng.normal(size=(len(twins), D)))
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    kmat = np.array([[MV_F, 0, MV_W / 2], [0, MV_F, MV_H / 2], [0, 0, 1]])
+    images = []
+    for th in np.deg2rad(np.linspace(-110.0, 110.0, MV_CAMS)):
+        c = 12.0 * np.array([np.sin(th), rng.uniform(-0.5, 0.5),
+                             np.cos(th)])
+        fwd = -c / np.linalg.norm(c)
+        right = np.cross([0.0, 1.0, 0.0], fwd)
+        right /= np.linalg.norm(right)
+        rot = np.stack([right, np.cross(fwd, right), fwd])  # world -> camera
+        cam = (pts - c) @ rot.T
+        uv = cam[:, :2] / cam[:, 2:3] * MV_F + [MV_W / 2, MV_H / 2]
+        ray = c - pts
+        facing = (np.cos(np.arctan2(ray[:, 0], ray[:, 2]) - facing_ang)
+                  > np.cos(np.deg2rad(60.0)))
+        sc, sp = (c - q0) @ n0, (pts - q0) @ n0
+        behind = (sc > 0) & (sp < -1e-9)
+        hit = c + (pts - c) * (sc / np.where(behind, sc - sp, 1.0))[:, None]
+        hidden = behind & (np.abs((hit - q0) @ u0) < 5) & (np.abs(hit[:, 1])
+                                                          < 3)
+        vis = np.nonzero((cam[:, 2] > 0.5) & (uv[:, 0] >= 0)
+                         & (uv[:, 0] < MV_W) & (uv[:, 1] >= 0)
+                         & (uv[:, 1] < MV_H) & facing & ~hidden)[0]
+        if len(vis) > MV_K - MV_DISTRACT:
+            vis = np.sort(rng.choice(vis, MV_K - MV_DISTRACT, replace=False))
+        nd = MV_K - len(vis)
+        xy = np.concatenate([uv[vis] + rng.normal(0, MV_NOISE_PX,
+                                                  (len(vis), 2)),
+                             rng.uniform([0, 0], [MV_W, MV_H], (nd, 2))])
+        d = np.abs(np.concatenate([desc[vis] + MV_DESC_NOISE * rng.normal(
+            size=(len(vis), D)), rng.normal(size=(nd, D))]))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        ids = np.concatenate([vis, np.full(nd, -1)])
+        order = rng.permutation(MV_K)
+        kp = np.c_[xy, rng.uniform(1.5, 8.0, MV_K),
+                   rng.uniform(-np.pi, np.pi, MV_K)]
+        images.append({"kp": kp[order].astype(np.float32),
+                       "desc": d[order].astype(np.float32),
+                       "ids": ids[order], "rot": rot, "centre": c})
+    return images, kmat
+
+
+def write_feature_db(path: str, images) -> None:
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    with FeatureDatabase(path) as db:
+        for i, im in enumerate(images):
+            iid = db.add_image(f"view_{i:03d}", width=MV_W, height=MV_H)
+            db.write_keypoints(iid, im["kp"])
+            db.write_descriptors(iid, im["desc"])
+        db.commit()
+
+
+def timed_database():
+    """A FeatureDatabase class whose reads and writes add their host time
+    to the current pair's record in its `times` list; match_pairs' first
+    call for each pair (has_matches) opens the record."""
+    from cvt_tpu_torch.io.database import FeatureDatabase
+
+    class TimedDatabase(FeatureDatabase):
+        times = [{"db_ms": 0.0}]
+
+    def timed(name):
+        def call(self, *args, **kw):
+            if name == "has_matches":
+                self.times.append({"db_ms": 0.0})
+            t0 = time.perf_counter()
+            try:
+                return getattr(FeatureDatabase, name)(self, *args, **kw)
+            finally:
+                self.times[-1]["db_ms"] += (time.perf_counter() - t0) * 1e3
+        return call
+    for name in ("read_descriptors", "read_keypoints", "write_matches",
+                 "write_two_view_geometry", "has_matches", "commit"):
+        setattr(TimedDatabase, name, timed(name))
+    return TimedDatabase
+
+
+class PairClock:
+    """Times match_pairs' parts without touching it: while entered, the
+    pipeline module's matcher and two-view estimator are wrapped in CUDA
+    events (device time from the call's first launch to its last), each
+    added to the current pair's record in `times`."""
+
+    def __init__(self, times: list):
+        self.times = times
+        self.events = []
+
+    def __enter__(self):
+        from cvt_tpu_torch.match import pipelines as pl
+        self.saved = pl.match_descriptors, pl.estimate_two_view_geometry
+
+        def evented(fn, key):
+            def call(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kw)
+                end.record()
+                self.events.append((self.times[-1], key, start, end))
+                return out
+            return call
+        pl.match_descriptors = evented(self.saved[0], "match_ms")
+        pl.estimate_two_view_geometry = evented(self.saved[1], "two_view_ms")
+        return self
+
+    def __exit__(self, *exc):
+        from cvt_tpu_torch.match import pipelines as pl
+        pl.match_descriptors, pl.estimate_two_view_geometry = self.saved
+        torch.cuda.synchronize()
+        for rec, key, start, end in self.events:
+            rec[key] = start.elapsed_time(end)
+
+
+def read_tables(path: str, pairs) -> dict:
+    """{pair: (matches [M, 2], inlier rows [I, 2] or None, config or
+    None)} of a database."""
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    out = {}
+    with FeatureDatabase(path) as db:
+        for a, b in pairs:
+            g = db.read_two_view_geometry(a, b)
+            out[(a, b)] = (db.read_matches(a, b),
+                           None if g is None else g[0],
+                           None if g is None else g[1])
+    return out
+
+
+def true_rows(images, a: int, b: int, rows) -> np.ndarray:
+    """Which match rows [M, 2] of images a, b (database ids) join two
+    projections of one scene point."""
+    ia, ib = images[a - 1]["ids"], images[b - 1]["ids"]
+    return (ia[rows[:, 0]] >= 0) & (ia[rows[:, 0]] == ib[rows[:, 1]])
+
+
+def shared_points(images, a: int, b: int) -> int:
+    ia, ib = images[a - 1]["ids"], images[b - 1]["ids"]
+    return len(np.intersect1d(ia[ia >= 0], ib[ib >= 0]))
+
+
+def rotation_error_deg(r_est: np.ndarray, r_true: np.ndarray) -> float:
+    c = (np.trace(r_est @ r_true.T) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def near_tie_rows(d1: np.ndarray, d2: np.ndarray, ratio: float,
+                  max_dist: float) -> np.ndarray:
+    """Rows of a 2-NN match whose outcome float32 rounding may decide:
+    top-2 gap, ratio margin or max-distance margin within 1e-5 relative,
+    or a best column whose two nearest rows are that close (float64
+    distances on the card)."""
+    a = torch.from_numpy(d1).to(DEV, torch.float64)
+    b = torch.from_numpy(d2).to(DEV, torch.float64)
+    d = (a * a).sum(1)[:, None] - 2.0 * a @ b.T + (b * b).sum(1)[None, :]
+    v = torch.topk(d, 2, dim=1, largest=False).values
+    best, second = v[:, 0], v[:, 1]
+    tie = (((second - best) <= 1e-5 * second)
+           | ((best - ratio * ratio * second).abs() <= 1e-5 * second)
+           | ((best - max_dist).abs() <= 1e-5 * max_dist))
+    col = torch.topk(d, 2, dim=0, largest=False).values
+    ctie = (col[1] - col[0]) <= 1e-5 * col[1]
+    return (tie | ctie[torch.argmin(d, 1)]).cpu().numpy()
+
+
+def compare_cpu(images, tables: dict, pairs, ratio: float,
+                max_dist: float) -> dict:
+    """The card's tables against the CPU's on the same pairs: matches
+    equal but for near-tie rows (counted), configurations equal, inlier
+    rows equal outside near-tie rows."""
+    card, cpu = tables["card"], tables["cpu"]
+    ties = rows = 0
+    for a, b in pairs:
+        (mg, ig, cg), (mc, ic, cc) = card[(a, b)], cpu[(a, b)]
+        tie = near_tie_rows(images[a - 1]["desc"], images[b - 1]["desc"],
+                            ratio, max_dist)
+        ties += int(tie.sum())
+        rows += len(tie)
+        keep = (lambda m: {tuple(r) for r in m if not tie[r[0]]})
+        assert keep(mg) == keep(mc), f"matches differ on pair {(a, b)}"
+        assert cg == cc, f"config {cg} on the card, {cc} on the CPU {(a, b)}"
+        if ig is not None:
+            assert keep(ig) == keep(ic), f"inliers differ on pair {(a, b)}"
+    assert ties <= 0.005 * rows, (ties, rows)
+    return {"pairs": len(pairs), "near_tie_rows": ties, "rows": rows}
+
+
+def phase_match(stamp: str) -> dict:
+    """Step 17: match_pairs over the exhaustive pairs of a 64-image
+    database at K 8,192 on the card (COLMAP's defaults), then guided over
+    the sequential pairs, one calibrated two-view estimate, and the same
+    pipeline on the CPU for 16 pairs."""
+    import tempfile
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    from cvt_tpu_torch.match import estimate_two_view_geometry
+    from cvt_tpu_torch.match import pipelines as pl
+    t_phase = time.perf_counter()
+    res = {}
+    t0 = time.perf_counter()
+    images, kmat = multiview_scene(SEED + 7)
+    res["data_s"] = time.perf_counter() - t0
+    ids = list(range(1, MV_CAMS + 1))
+    pairs = pl.exhaustive_pairs(ids)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "features.sqlite")
+        t0 = time.perf_counter()
+        write_feature_db(base, images)
+        res["db_write_s"] = time.perf_counter() - t0
+        paths = {}
+        for name in ("exhaustive", "guided", "card", "cpu"):
+            paths[name] = os.path.join(tmp, f"{name}.sqlite")
+            shutil.copy(base, paths[name])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        Timed = timed_database()
+        times = Timed.times
+        with Timed(paths["exhaustive"]) as db, PairClock(times):
+            t0 = time.perf_counter()
+            stats = pl.match_pairs(db, pairs, device=DEV)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        per_pair = times[1:]
+        assert len(per_pair) == len(pairs), (len(per_pair), len(pairs))
+        res.update(pairs=len(pairs), wall_s=wall, pairs_per_s=len(pairs) / wall,
+                   configs=stats.configs, n_matched=stats.n_matched,
+                   n_verified=stats.n_verified)
+        for key in ("match_ms", "two_view_ms", "db_ms"):
+            v = [t[key] for t in per_pair if key in t]
+            res[key] = (float(np.median(v)), float(np.percentile(v, 90)),
+                        len(v))
+        tables = read_tables(paths["exhaustive"], pairs)
+        n_match = [len(m) for m, _, _ in tables.values()]
+        n_inl = [len(i) for _, i, _ in tables.values() if i is not None]
+        true = sum(int(true_rows(images, a, b, i).sum())
+                   for (a, b), (_, i, _) in tables.items() if i is not None)
+        res["matches_per_pair"] = (float(np.mean(n_match)),
+                                   float(np.median(n_match)))
+        res["inliers_per_verified_pair"] = (float(np.mean(n_inl)),
+                                            float(np.median(n_inl)))
+        res["true_inlier_share"] = true / max(sum(n_inl), 1)
+        assert res["true_inlier_share"] >= 0.95, res["true_inlier_share"]
+        shared = {p: shared_points(images, *p) for p in pairs}
+        missed = [p for p in pairs if shared[p] >= 200
+                  and tables[p][2] in (None, 1)]
+        res["pairs_200_shared"] = sum(s >= 200 for s in shared.values())
+        assert not missed, f"unverified pairs with >= 200 shared: {missed}"
+        assert {"uncalibrated", "planar_or_panoramic"} <= set(stats.configs)
+
+        # guided re-matching over the consecutive pairs
+        seq = pl.sequential_pairs(ids, overlap=1)
+        torch.cuda.reset_peak_memory_stats()
+        with FeatureDatabase(paths["guided"]) as db:
+            t0 = time.perf_counter()
+            gstats = pl.match_pairs(db, seq, guided=True, device=DEV)
+            torch.cuda.synchronize()
+            res["guided_s"] = time.perf_counter() - t0
+        res["guided_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        gt = read_tables(paths["guided"], seq)
+        g_inl = sum(len(i) for _, i, _ in gt.values() if i is not None)
+        g_true = sum(int(true_rows(images, a, b, i).sum())
+                     for (a, b), (_, i, _) in gt.items() if i is not None)
+        p_inl = sum(len(tables[p][1]) for p in seq
+                    if tables[p][1] is not None)
+        res["guided"] = {"pairs": len(seq), "verified": gstats.n_verified,
+                         "inliers": g_inl, "plain_inliers": p_inl,
+                         "true_share": g_true / max(g_inl, 1),
+                         "configs": gstats.configs}
+        assert res["guided"]["true_share"] >= 0.95, res["guided"]
+        assert gstats.n_verified == sum(tables[p][2] not in (None, 1)
+                                        for p in seq)
+
+        # the calibrated 5-point path on the general pair with most inliers
+        # among pairs 4 cameras apart, at COLMAP's 4 px and at 1 px (twice
+        # the keypoint noise). At 4 px every point is an inlier of most
+        # 5-point hypotheses: the first of them is kept, since the LO refit
+        # must support strictly more (as in cvt_tpu), so the pose is that
+        # of one minimal sample (tests/test_torch_geometry.py holds that
+        # choice against cvt_tpu's on an all-inlier scene). At 1 px the
+        # supports tell the hypotheses apart and the refit over all inliers
+        # wins; the gate holds it.
+        cand = [(len(tables[p][1]), p) for p in pairs
+                if p[1] - p[0] == 4 and tables[p][2] == 3]
+        _, (a, b) = max(cand)
+        rows = tables[(a, b)][1]
+        src = torch.from_numpy(images[a - 1]["kp"][rows[:, 0], :2]).to(DEV)
+        dst = torch.from_numpy(images[b - 1]["kp"][rows[:, 1], :2]).to(DEV)
+        r_true = images[b - 1]["rot"] @ images[a - 1]["rot"].T
+        t_true = images[b - 1]["rot"] @ (images[a - 1]["centre"]
+                                         - images[b - 1]["centre"])
+        res["calibrated"] = {"pair": (a, b), "points": len(rows)}
+        for px in (4.0, 1.0):
+            t0 = time.perf_counter()
+            geom = estimate_two_view_geometry(
+                torch.Generator().manual_seed(SEED), src, dst, k1=kmat,
+                k2=kmat, f_threshold=px)
+            ms = (time.perf_counter() - t0) * 1e3
+            assert geom.config_name == "calibrated", (px, geom.config_name)
+            res["calibrated"][px] = {
+                "inliers": geom.n_inliers, "ms": ms,
+                "rot_err_deg": rotation_error_deg(geom.r, r_true),
+                "t_err_deg": float(np.degrees(np.arccos(np.clip(abs(
+                    geom.t @ t_true) / np.linalg.norm(geom.t)
+                    / np.linalg.norm(t_true), -1.0, 1.0))))}
+        assert res["calibrated"][1.0]["rot_err_deg"] < 1.0, res["calibrated"]
+
+        # the same pipeline on the CPU for 16 pairs, each side fresh
+        by_config = {}
+        for p in pairs:
+            by_config.setdefault(tables[p][2], []).append(p)
+        few = (by_config.get(3, [])[:8] + by_config.get(6, [])[:6]
+               + by_config.get(None, [])[:1] + by_config.get(1, [])[:1])
+        few = sorted(few + [p for p in pairs if p not in few][
+            :max(MV_CPU_PAIRS - len(few), 0)])
+        cmp_tables, cmp_s = {}, {}
+        for name, dev in (("card", DEV), ("cpu", "cpu")):
+            with FeatureDatabase(paths[name]) as db:
+                t0 = time.perf_counter()
+                pl.match_pairs(db, few, device=dev)
+                cmp_s[name] = time.perf_counter() - t0
+            cmp_tables[name] = read_tables(paths[name], few)
+        res["cpu"] = compare_cpu(images, cmp_tables, few, 0.8,
+                                 0.7 ** 2 * 2.0)
+        res["cpu"].update(s_per_pair={k: v / len(few)
+                                      for k, v in cmp_s.items()})
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["_images"] = images
+    return res
+
+
+def render_pair_views():
+    """Step 18's input: MATCH_CLI_VIEWS re-rendered views (render_views)
+    of 2 procedural images, the first half of the first, uint8."""
+    from cvt_tpu_torch.io.datasets import procedural_images
+    src = procedural_images(2, FEAT_H, FEAT_W, seed=SEED + 8)
+    per = MATCH_CLI_VIEWS // 2
+    views = render_views(np.repeat(src, per, axis=0), SEED + 9)
+    return (views * 255).round().astype(np.uint8), np.repeat([0, 1], per)
+
+
+def run_match_cli(tmp: str) -> dict:
+    """Step 18: `cli feature_extractor --database` on 16 views of 2
+    images, then the five matcher commands and the three database
+    commands as subprocesses (the matchers in parallel, each on its own
+    copy), each JSON line against the same work done in-process."""
+    from concurrent.futures import ThreadPoolExecutor
+    from cvt_tpu_torch.cli import stats_line
+    from cvt_tpu_torch.index import VocabHEIndex
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    from cvt_tpu_torch.match import pipelines as pl
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def cli(*args) -> str:
+        run = subprocess.run([sys.executable, "-m", "cvt_tpu_torch.cli",
+                              *args], capture_output=True, text=True,
+                             cwd=root, timeout=300)
+        if run.returncode:
+            raise RuntimeError(f"cli {args[0]} exited {run.returncode}: "
+                               f"{run.stderr[-2000:]}")
+        return run.stdout.strip().splitlines()[-1]
+
+    def path(name: str) -> str:
+        return os.path.join(tmp, name)
+    views, source = render_pair_views()
+    np.save(path("views.npy"), views)
+    t0 = time.perf_counter()
+    cli("feature_extractor", "--images", path("views.npy"), "--out",
+        path("views.npz"), "--database", path("base.sqlite"))
+    out = {"extract_s": time.perf_counter() - t0}
+    with FeatureDatabase(path("base.sqlite")) as db:
+        ids = [i for i, _ in db.iter_images()]
+    pairs = pl.exhaustive_pairs(ids)
+    # in-process, each on its own copy of the database
+    want = {}
+
+    def inproc(name, fn):
+        shutil.copy(path("base.sqlite"), path(f"in_{name}.sqlite"))
+        with FeatureDatabase(path(f"in_{name}.sqlite")) as db:
+            want[name] = fn(db)
+    inproc("exhaustive", lambda db: stats_line(
+        "exhaustive", pl.match_pairs(db, pairs, device=DEV)))
+    inproc("sequential", lambda db: stats_line(
+        "sequential", pl.match_pairs(db, pl.sequential_pairs(ids),
+                                     device=DEV)))
+    with open(path("pairs.txt"), "w") as f:
+        f.write("image_000000 image_000001\nimage_000002 image_000009\n"
+                "image_000003 missing\n5 6\n")
+    inproc("image_pairs", lambda db: stats_line(
+        "image_pairs", pl.match_pairs(db, pl.pairs_from_file(
+            db, path("pairs.txt")), device=DEV)))
+
+    def vocab(db):
+        train = np.concatenate([db.read_descriptors(i) for i in ids])
+        index = VocabHEIndex(n_words=min(MATCH_CLI_WORDS,
+                                         max(len(train) // 4, 16)),
+                             dim=train.shape[1], device=DEV)
+        index.train(torch.Generator().manual_seed(0),
+                    train.astype(np.float32), iters=10)
+        return stats_line("vocab_tree", pl.match_pairs(
+            db, pl.vocab_tree_pairs(db, index, num_images=20), device=DEV))
+    inproc("vocab_tree", vocab)
+    with FeatureDatabase(path("in_exhaustive.sqlite")) as db:
+        blocks = [f"image_{a - 1:06d} image_{b - 1:06d}\n" + "\n".join(
+            f"{i} {j}" for i, j in db.read_matches(a, b))
+            for a, b in ((1, 2), (9, 12), (3, 4), (2, 10))]
+    with open(path("matches.txt"), "w") as f:
+        f.write("\n\n".join(blocks) + "\n")
+    inproc("importer", lambda db: stats_line(
+        "feature_pairs", pl.import_feature_matches(db, path("matches.txt"),
+                                                   device=DEV)))
+    commands = {
+        "exhaustive": ("exhaustive_matcher",),
+        "sequential": ("sequential_matcher",),
+        "image_pairs": ("image_pairs_matcher", "--pair-list",
+                        path("pairs.txt")),
+        "vocab_tree": ("vocab_tree_matcher", "--num-words",
+                       str(MATCH_CLI_WORDS)),
+        "importer": ("matches_importer", "--match-list",
+                     path("matches.txt"))}
+    for name in commands:
+        shutil.copy(path("base.sqlite"), path(f"cli_{name}.sqlite"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(commands)) as pool:
+        got = dict(zip(commands, pool.map(
+            lambda n: cli(commands[n][0], "--database",
+                          path(f"cli_{n}.sqlite"), *commands[n][1:]),
+            commands)))
+    out["matchers_s"] = time.perf_counter() - t0
+    for name in commands:
+        assert got[name] == want[name], (name, got[name], want[name])
+    out["lines"] = got
+    # same-source pairs verify, cross-source pairs stay under 15 matches
+    tables = read_tables(path("cli_exhaustive.sqlite"), pairs)
+    for (a, b), (m, _, config) in tables.items():
+        if source[a - 1] == source[b - 1]:
+            assert config not in (None, 1), ("unverified", a, b)
+        else:
+            assert len(m) < 15, ("cross-source matches", a, b, len(m))
+    out["same_source_inliers"] = float(np.mean([
+        len(i) for (a, b), (_, i, _) in tables.items()
+        if source[a - 1] == source[b - 1]]))
+    out["cross_source_max_matches"] = max(
+        len(m) for (a, b), (m, _, _) in tables.items()
+        if source[a - 1] != source[b - 1])
+    # the database commands on copies
+    shutil.copy(path("cli_exhaustive.sqlite"), path("clean.sqlite"))
+    t0 = time.perf_counter()
+    db_lines = [cli("database_creator", "--database", path("new.sqlite")),
+                cli("database_cleaner", "--database", path("clean.sqlite"),
+                    "--type", "matches"),
+                cli("database_merger", "--database1", path("base.sqlite"),
+                    "--database2", path("new.sqlite"), "--merged_database",
+                    path("merged.sqlite"))]
+    out["db_commands_s"] = time.perf_counter() - t0
+    assert db_lines == [
+        json.dumps({"created": path("new.sqlite")}),
+        json.dumps({"cleared": "matches"}),
+        json.dumps({"merged": path("merged.sqlite"),
+                    "n_images": MATCH_CLI_VIEWS})], db_lines
+    with FeatureDatabase(path("clean.sqlite")) as db:
+        assert not any(db.has_matches(a, b) for a, b in pairs)
+        assert db.num_images() == MATCH_CLI_VIEWS
+    return out
+
+
+def match_profile(images, n_pairs: int, top: int = 10) -> dict:
+    """torch.profiler over match_pairs on n_pairs consecutive pairs of
+    step 17's images (a fresh database): top device operations by self
+    device time, their sum, the wall clock, and the top host operations
+    and CUDA runtime calls by self host time (where the host waits)."""
+    import tempfile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    from cvt_tpu_torch.match import pipelines as pl
+    pairs = pl.sequential_pairs(range(1, n_pairs + 2), overlap=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "p.sqlite")
+        write_feature_db(path, images[:n_pairs + 1])
+        with FeatureDatabase(path) as db:
+            pl.match_pairs(db, pairs[:1], device=DEV)        # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                pl.match_pairs(db, pairs, device=DEV, skip_existing=False)
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    if not ops:
+        ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages() if e.self_device_time_total > 0]
+    ops.sort(key=lambda o: -o[1])
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), key=lambda o: -o[1])
+    return {"pairs": len(pairs), "wall_ms": wall,
+            "device_ms": sum(o[1] for o in ops), "top": ops[:top],
+            "host": host[:top]}
+
+
+def run_matching(stamp: str) -> dict:
+    """Steps 17-18 with their prints; returns the images for the last
+    profile."""
+    import tempfile
+    t_all = time.perf_counter()
+    zero_launch_counts()
+    mt = phase_match(stamp)
+    print(f"matching database: {MV_CAMS} images {MV_W}x{MV_H} at K {MV_K} "
+          f"(D {D}), {MV_GENERAL} volume + {MV_FACADE} facade points; data "
+          f"{mt['data_s']:.1f} s, database write {mt['db_write_s']:.1f} s "
+          f"{stamp}")
+    print(f"match_pairs exhaustive ({mt['pairs']} pairs; ratio 0.8, "
+          f"max_dist 0.98, cross-check, min 15, F 4 px, H 12 px, 256 "
+          f"hypotheses): {mt['wall_s']:.2f} s, {mt['pairs_per_s']:.2f} "
+          f"pairs/s, peak memory allocated {mt['peak_gb']:.2f} GB {stamp}")
+    for key, what in (("match_ms", "matching (CUDA events)"),
+                      ("two_view_ms", "two-view (CUDA events)"),
+                      ("db_ms", "database (host clock)")):
+        med, p90, n = mt[key]
+        print(f"  per pair, {what}: median {med:.3f} ms, p90 {p90:.3f} ms "
+              f"over {n} pairs {stamp}")
+    print(f"  matches per pair mean {mt['matches_per_pair'][0]:.1f} (median "
+          f"{mt['matches_per_pair'][1]:.0f}); inliers per verified pair mean "
+          f"{mt['inliers_per_verified_pair'][0]:.1f} (median "
+          f"{mt['inliers_per_verified_pair'][1]:.0f}); matched "
+          f"{mt['n_matched']}, verified {mt['n_verified']} by configuration "
+          f"{mt['configs']}; {mt['true_inlier_share']:.4f} of stored inliers "
+          f"are true correspondences (gate 0.95); all "
+          f"{mt['pairs_200_shared']} pairs with >= 200 shared points "
+          f"verified {stamp}")
+    g = mt["guided"]
+    print(f"match_pairs guided over {g['pairs']} sequential pairs: "
+          f"{mt['guided_s']:.2f} s, verified {g['verified']} "
+          f"{g['configs']}, inliers {g['inliers']} (plain {g['plain_inliers']}),"
+          f" {g['true_share']:.4f} true, peak memory allocated "
+          f"{mt['guided_peak_gb']:.2f} GB {stamp}")
+    c = mt["calibrated"]
+    for px in (4.0, 1.0):
+        print(f"estimate_two_view_geometry with K on pair {c['pair']} "
+              f"({c['points']} points), F / E threshold {px:g} px: "
+              f"calibrated, {c[px]['inliers']} inliers, rotation error "
+              f"{c[px]['rot_err_deg']:.4f} deg (gate < 1 at 1 px), "
+              f"translation direction error {c[px]['t_err_deg']:.4f} deg, "
+              f"{c[px]['ms']:.1f} ms (wall) {stamp}")
+    cp = mt["cpu"]
+    print(f"match_pairs card vs CPU on {cp['pairs']} pairs (seed {SEED}): "
+          f"tables equal, {cp['near_tie_rows']} near-tie rows of "
+          f"{cp['rows']}; {cp['s_per_pair']['card']:.3f} s/pair card, "
+          f"{cp['s_per_pair']['cpu']:.3f} s/pair CPU {stamp}")
+    print(f"step 17 took {mt['phase_s']:.1f} s {stamp}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cl = run_match_cli(tmp)
+    for name, line in cl["lines"].items():
+        print(f"cli {name}: {line}")
+    print(f"step 18: feature_extractor {cl['extract_s']:.1f} s, five "
+          f"matchers in parallel {cl['matchers_s']:.1f} s, database "
+          f"commands {cl['db_commands_s']:.1f} s (process wall clock); every "
+          f"line equals in-process; same-source pairs verified (mean "
+          f"{cl['same_source_inliers']:.1f} inliers), cross-source pairs at "
+          f"most {cl['cross_source_max_matches']} matches {stamp}")
+    launches = launch_counts()
+    print(f"launches during steps 17-18: {launches} {stamp}")
+    assert not any(launches.values()), launches
+    print(f"steps 17-18 took {time.perf_counter() - t_all:.1f} s {stamp}")
+    return {"images": mt.pop("_images")}
+
+
 def print_compare(what: str, cmp: dict, stamp: str) -> None:
     for name, c in cmp.items():
         print(f"kernel vs twin, {what}: {name} max|diff| {c['max_abs_err']}"
@@ -1950,6 +2554,7 @@ def main() -> int:
     sv = run_serving(idx, q_dev, gt, ids_ref, base_dev, stamp)
     run_vocab(stamp)
     feat = run_features(stamp)
+    match = run_matching(stamp)
     # last: the profiler leaves its hooks behind, which slows the host side
     # of whatever runs after it
     from cvt_tpu_torch.ops.kernels import adc_scan as T
@@ -1966,6 +2571,17 @@ def main() -> int:
           f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms; top "
           f"device operations (self ms, calls): " + "; ".join(
               f"{name[:60]} {ms:.3f} ({n})" for name, ms, n in prof["top"])
+          + f" {stamp}")
+    mp = match_profile(match["images"], MV_PROFILE_PAIRS)
+    print(f"match_pairs over {mp['pairs']} pairs at K {MV_K} under "
+          f"torch.profiler: wall {mp['wall_ms']:.2f} ms, device "
+          f"{mp['device_ms']:.2f} ms; top device operations (self ms, "
+          f"calls): " + "; ".join(f"{name[:60]} {ms:.3f} ({n})"
+                                  for name, ms, n in mp["top"])
+          + f" {stamp}")
+    print(f"match_pairs over {mp['pairs']} pairs, top host operations (self "
+          f"ms, calls): " + "; ".join(f"{name[:50]} {ms:.3f} ({n})"
+                                     for name, ms, n in mp["host"])
           + f" {stamp}")
 
     seg_err = {str(s): c["max_abs_err"] for s, c in segv.items()}

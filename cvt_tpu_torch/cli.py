@@ -11,14 +11,23 @@ Commands:
   feature_extractor     extract SIFT features from an image .npy
   retrieve              rank database images for query images (vote + rerank)
   vocab_tree_retriever  index + rank database images by vocab tree
+  exhaustive_matcher / sequential_matcher / spatial_matcher /
+  vocab_tree_matcher / image_pairs_matcher
+                        generate pairs, match, verify two-view geometry,
+                        store both in a FeatureDatabase
+  matches_importer      import explicit feature matches (and verify them)
+  database_creator / database_cleaner / database_merger
+                        feature-database management
   serve                 sharded query server over a saved flat ADC index
 
 Flags, outputs and printed lines are `cvt_tpu.cli`'s, and the files each
 command reads or writes are interchangeable with it. Every command but
-gen_data runs on the card; `--device cpu` asks for the CPU (without a
-card and without it the command fails). Seeds give a torch.Generator
-where `cvt_tpu` makes a jax.random key, so trained models differ between
-the two packages for the same seed. `serve` runs one rank per process:
+gen_data and the three database commands (which touch no device) runs on
+the card, and takes `--device`, the port's one extra flag: `--device cpu`
+asks for the CPU; without a card and without it the command fails.
+Seeds give a torch.Generator where `cvt_tpu` makes a jax.random key, so
+trained models and RANSAC samples differ between the two packages for
+the same seed. `serve` runs one rank per process:
 alone it is a 1-rank group; under torchrun every rank holds one shard:
 
     python -m cvt_tpu_torch.cli serve --index pack.npz --queries q.fvecs
@@ -279,6 +288,118 @@ def _cmd_vocab_tree_retriever(args):
     return 0
 
 
+def stats_line(mode: str, stats) -> str:
+    """The JSON line a matcher command prints for its MatchPipelineStats."""
+    return json.dumps({
+        "mode": mode, "n_pairs": stats.n_pairs,
+        "n_matched": stats.n_matched, "n_verified": stats.n_verified,
+        "n_skipped": stats.n_skipped, "configs": stats.configs})
+
+
+def _print_stats(mode: str, stats) -> None:
+    print(stats_line(mode, stats))
+
+
+def _cmd_matcher(args, mode: str):
+    """The matcher commands (colmap.cc:93-139 dispatch: {exhaustive,
+    sequential, spatial, vocab_tree, image_pairs}_matcher): generate
+    pairs per strategy, run the match -> verify pipeline, store matches +
+    two-view geometries in the database. vocab_tree_matcher without
+    --vocab-index trains a vocabulary from the database's descriptors
+    with a generator seeded 0."""
+    import torch
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    from cvt_tpu_torch.match import pipelines as pl
+
+    with FeatureDatabase(args.database) as db:
+        ids = [i for i, _ in db.iter_images()]
+        if mode == "exhaustive":
+            pairs = pl.exhaustive_pairs(ids, block_size=args.block_size)
+        elif mode == "sequential":
+            pairs = pl.sequential_pairs(ids, overlap=args.overlap,
+                                        quadratic=args.quadratic)
+        elif mode == "spatial":
+            pairs = pl.spatial_pairs(
+                ids, np.load(args.positions),
+                max_num_neighbors=args.max_neighbors,
+                max_distance=args.max_distance, device=args.device)
+        elif mode == "image_pairs":
+            pairs = pl.pairs_from_file(db, args.pair_list)
+        else:
+            from cvt_tpu_torch.index import VocabHEIndex
+            if args.vocab_index:
+                index = VocabHEIndex.load(args.vocab_index,
+                                          device=args.device)
+            else:
+                # train a vocabulary from the database's own descriptors
+                # (the reference ships a pretrained tree; zero-asset
+                # fallback mirrors its Build() path)
+                descs = [d for d in (db.read_descriptors(i) for i in ids)
+                         if d is not None and len(d)]
+                if not descs:
+                    raise SystemExit(
+                        "vocab_tree_matcher: no descriptors in the "
+                        "database — run feature_extractor first")
+                train = np.concatenate(descs)
+                index = VocabHEIndex(n_words=min(args.num_words,
+                                                 max(len(train) // 4, 16)),
+                                     dim=train.shape[1], device=args.device)
+                index.train(torch.Generator().manual_seed(0),
+                            train.astype(np.float32), iters=10)
+            pairs = pl.vocab_tree_pairs(db, index,
+                                        num_images=args.num_images)
+        if args.transitive:
+            pairs = list(pairs) + pl.transitive_pairs(db, ids)
+        stats = pl.match_pairs(
+            db, pairs, ratio=args.ratio, min_num_matches=args.min_matches,
+            verify=not args.no_verify, guided=args.guided,
+            device=args.device)
+    _print_stats(mode, stats)
+
+
+def _cmd_matches_importer(args):
+    """Import explicit feature matches (FeaturePairsFeatureMatcher,
+    matching.cc:1569-1660)."""
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    from cvt_tpu_torch.match import pipelines as pl
+
+    with FeatureDatabase(args.database) as db:
+        stats = pl.import_feature_matches(
+            db, args.match_list, verify=not args.no_verify,
+            min_num_matches=args.min_matches, device=args.device)
+    _print_stats("feature_pairs", stats)
+
+
+def _cmd_database_creator(args):
+    """Create an empty feature database (RunDatabaseCreator)."""
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    with FeatureDatabase(args.database):
+        pass
+    print(json.dumps({"created": args.database}))
+
+
+def _cmd_database_cleaner(args):
+    """Clear database tables (RunDatabaseCleaner, exe/database.cc:40)."""
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    with FeatureDatabase(args.database) as db:
+        db.clear(args.type)
+    print(json.dumps({"cleared": args.type}))
+
+
+def _cmd_database_merger(args):
+    """Merge two databases (RunDatabaseMerger, exe/database.cc:91)."""
+    import os
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    if os.path.exists(args.merged_database):
+        raise SystemExit("ERROR: merged database file must not exist")
+    with FeatureDatabase(args.database1) as d1, \
+            FeatureDatabase(args.database2) as d2, \
+            FeatureDatabase(args.merged_database) as out:
+        FeatureDatabase.merge(d1, d2, out)
+        n = out.num_images()
+    print(json.dumps({"merged": args.merged_database, "n_images": n}))
+
+
 def _print_rows(d, i) -> None:
     for row_d, row_i in zip(np.asarray(d), np.asarray(i)):
         print(json.dumps({"ids": row_i.tolist(),
@@ -428,6 +549,66 @@ def main(argv=None):
     g.add_argument("--verify", type=int, default=0,
                    help="spatially re-rank this many candidates")
 
+    def matcher(name, mode):
+        g = parser(name, lambda a: _cmd_matcher(a, mode))
+        g.add_argument("--database", required=True)
+        g.add_argument("--ratio", type=float, default=0.8)
+        g.add_argument("--min-matches", type=int, default=15)
+        g.add_argument("--no-verify", action="store_true")
+        g.add_argument("--guided", action="store_true")
+        g.add_argument("--transitive", action="store_true",
+                       help="add two-hop closure pairs over existing "
+                       "matches (TransitiveFeatureMatcher)")
+        return g
+
+    g = matcher("exhaustive_matcher", "exhaustive")
+    g.add_argument("--block-size", type=int, default=50)
+
+    g = matcher("sequential_matcher", "sequential")
+    g.add_argument("--overlap", type=int, default=10)
+    g.add_argument("--quadratic", action="store_true")
+
+    g = matcher("spatial_matcher", "spatial")
+    g.add_argument("--positions", required=True,
+                   help=".npy [n_images, 2|3] camera positions")
+    g.add_argument("--max-neighbors", type=int, default=50)
+    g.add_argument("--max-distance", type=float, default=100.0)
+
+    g = matcher("vocab_tree_matcher", "vocab_tree")
+    g.add_argument("--vocab-index", default=None,
+                   help="saved VocabHEIndex .npz (trained on the fly "
+                   "from the database when omitted)")
+    g.add_argument("--num-words", type=int, default=4096)
+    g.add_argument("--num-images", type=int, default=20)
+
+    g = matcher("image_pairs_matcher", "image_pairs")
+    g.add_argument("--pair-list", required=True,
+                   help="text file: one 'name1 name2' pair per line "
+                   "(ImagePairsFeatureMatcher)")
+
+    g = parser("matches_importer", _cmd_matches_importer)
+    g.add_argument("--database", required=True)
+    g.add_argument("--match-list", required=True,
+                   help="blocks: 'name1 name2' header + 'idx1 idx2' rows "
+                   "(FeaturePairsFeatureMatcher format)")
+    g.add_argument("--no-verify", action="store_true",
+                   help="trust the rows as inliers (skip geometric "
+                   "verification)")
+    g.add_argument("--min-matches", type=int, default=15)
+
+    g = parser("database_creator", _cmd_database_creator, on_device=False)
+    g.add_argument("--database", required=True)
+
+    g = parser("database_cleaner", _cmd_database_cleaner, on_device=False)
+    g.add_argument("--database", required=True)
+    g.add_argument("--type", required=True,
+                   choices=["all", "images", "features", "matches"])
+
+    g = parser("database_merger", _cmd_database_merger, on_device=False)
+    g.add_argument("--database1", required=True)
+    g.add_argument("--database2", required=True)
+    g.add_argument("--merged_database", required=True)
+
     g = parser("serve", _cmd_serve)
     g.add_argument("--index", required=True)
     g.add_argument("--queries", default=None)
@@ -440,6 +621,9 @@ def main(argv=None):
 
     args = p.parse_args(argv)
     import torch.distributed as dist
+    if hasattr(args, "device"):
+        from cvt_tpu_torch.utils import resolve_device
+        resolve_device(args.device)      # no card: fail before any work
     try:
         return args.fn(args)
     finally:

@@ -1,6 +1,14 @@
-"""Utilities: quality metrics, the device rule of the entry points."""
+"""Utilities: quality metrics, the device rule of the entry points,
+logging, CHECK helpers and the LRU cache."""
 
 from cvt_tpu_torch.utils.device import resolve_device
+from cvt_tpu_torch.utils.log import (CheckError, LRUCache, check, check_eq,
+                                     check_ge, check_gt, check_le, check_lt,
+                                     check_ne, check_option, get_logger,
+                                     init_logging)
 from cvt_tpu_torch.utils.metrics import recall_at_k
 
-__all__ = ["recall_at_k", "resolve_device"]
+__all__ = ["recall_at_k", "resolve_device", "CheckError", "LRUCache",
+           "check", "check_eq", "check_ge", "check_gt", "check_le",
+           "check_lt", "check_ne", "check_option", "get_logger",
+           "init_logging"]

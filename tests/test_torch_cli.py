@@ -13,7 +13,11 @@ tests/_torch_parallel_workers.py). The other commands run in-process
 (`main(argv)`) with `--device cpu`; printed lines equal, apart from
 pq_train's error (another generator trains other codebooks) and
 vocab_tree_retriever's scores (rtol 1e-5, float32 sums in another
-order)."""
+order). The matcher and database commands run in-process on copies of
+one FeatureDatabase (tests/test_torch_pipelines.py's scene): the same
+JSON lines and the same tables, under that file's rules (matches up to
+counted near-ties, configurations and inlier rows equal; the RANSAC
+draws differ, so the stored models are compared by kind)."""
 
 import contextlib
 import io
@@ -56,7 +60,10 @@ MODULES = ["cvt_tpu_torch.quant.sq", "cvt_tpu_torch.quant.pca",
            "cvt_tpu_torch.features.affine", "cvt_tpu_torch.features.covdet",
            "cvt_tpu_torch.features.pipeline", "cvt_tpu_torch.match.svf",
            "cvt_tpu_torch.match.ransac", "cvt_tpu_torch.apps",
-           "cvt_tpu_torch.apps.retrieval"]
+           "cvt_tpu_torch.apps.retrieval", "cvt_tpu_torch.utils.log",
+           "cvt_tpu_torch.match.nn", "cvt_tpu_torch.match.epipolar",
+           "cvt_tpu_torch.match.pose", "cvt_tpu_torch.match.two_view",
+           "cvt_tpu_torch.match.guided", "cvt_tpu_torch.match.pipelines"]
 
 
 def _python(code: str, *args, stdin: str | None = None):
@@ -384,3 +391,99 @@ def test_retrieve_matches_reference(image_files, rerank):
     assert [r["results"] for r in rows] == \
         [json.loads(line)["results"] for line in want]
     assert [r["results"][0] for r in rows] == ["img_0", "img_1"]
+
+
+# ---------------------------------------------------------------------------
+# the matcher and database commands
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def match_db(tmp_path_factory):
+    from test_torch_pipelines import scene, write_scene
+    tmp = tmp_path_factory.mktemp("match")
+    images = scene(noise=0.0)        # as the guided runs there need
+    write_scene(str(tmp / "scene.sqlite"), images)
+    np.save(str(tmp / "pos.npy"), np.array(
+        [[0, 0], [1, 0], [50, 0], [51, 0], [52, 0]], np.float32))
+    (tmp / "pairs.txt").write_text("im0.jpg im1.jpg\nim3.jpg im4.jpg\n"
+                                   "im2.jpg missing.jpg\n2 3\n")
+    from test_torch_pipelines import _match_list
+    _match_list(str(tmp / "matches.txt"), images)
+    return tmp, images
+
+
+def _both(tmp, name, *args, path_args=()):
+    """Run a command of each CLI on its own copy of the scene database;
+    -> (cvt_tpu's lines, the port's lines, the two database paths)."""
+    import shutil
+    out = []
+    for tag, main, dev in (("j", jcli.main, ()),
+                           ("t", tcli.main, ("--device", "cpu"))):
+        db = str(tmp / f"{name}_{tag}.sqlite")
+        shutil.copy(str(tmp / "scene.sqlite"), db)
+        extra = [a.replace("{tmp}", str(tmp)) for a in args]
+        out.append((_run(main, name, "--database", db, *extra, *dev), db))
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+@pytest.mark.parametrize("name,args", [
+    ("exhaustive_matcher", ("--block-size", "2")),
+    ("exhaustive_matcher", ("--no-verify", "--ratio", "0.7")),
+    ("sequential_matcher", ("--overlap", "2", "--guided")),
+    ("sequential_matcher", ("--overlap", "2", "--quadratic")),
+    ("spatial_matcher", ("--positions", "{tmp}/pos.npy", "--max-neighbors",
+                         "1", "--max-distance", "5")),
+    ("vocab_tree_matcher", ("--num-words", "64", "--num-images", "20",
+                            "--transitive")),
+    ("image_pairs_matcher", ("--pair-list", "{tmp}/pairs.txt",
+                             "--min-matches", "30")),
+    ("matches_importer", ("--match-list", "{tmp}/matches.txt")),
+    ("matches_importer", ("--match-list", "{tmp}/matches.txt",
+                          "--no-verify"))])
+def test_matcher_commands_match_reference(match_db, name, args):
+    """The same JSON line and tables as cvt_tpu.cli's command. The
+    vocabulary trained on the fly differs (another generator), but with
+    --num-images above the image count both retrieve every pair."""
+    from test_torch_pipelines import assert_tables_equal
+    tmp, images = match_db
+    want, got, jdb, tdb = _both(tmp, name, *args)
+    assert got == want
+    stats = json.loads(got[-1])
+    assert stats["n_pairs"] >= 2
+    pairs = [(a, b) for a in range(1, 6) for b in range(a + 1, 6)]
+    ratio = 0.7 if "0.7" in args else 0.8
+    assert_tables_equal(jdb, tdb, pairs, images, ratio=ratio,
+                        guided="--guided" in args)
+
+
+def test_database_commands_match_reference(match_db):
+    tmp, _ = match_db
+    for tag, main in (("j", jcli.main), ("t", tcli.main)):
+        new = str(tmp / f"new_{tag}.sqlite")
+        assert _run(main, "database_creator", "--database", new) == [
+            json.dumps({"created": new})]
+        with FeatureDatabase(new) as db:
+            assert db.num_images() == 0
+    want, got, jdb, tdb = _both(tmp, "exhaustive_matcher")
+    for typ in ("matches", "features", "images"):
+        lines = [_run(main, "database_cleaner", "--database", db, "--type",
+                      typ) for main, db in ((jcli.main, jdb), (tcli.main, tdb))]
+        assert lines[0] == lines[1] == [json.dumps({"cleared": typ})]
+        with FeatureDatabase(jdb) as a, FeatureDatabase(tdb) as b:
+            assert a.num_images() == b.num_images()
+            assert [a.has_matches(1, 2), a.read_keypoints(1) is None] == \
+                [b.has_matches(1, 2), b.read_keypoints(1) is None]
+    merged = {}
+    for tag, main in (("j", jcli.main), ("t", tcli.main)):
+        out = str(tmp / f"merged_{tag}.sqlite")
+        line = _run(main, "database_merger", "--database1",
+                    str(tmp / "scene.sqlite"), "--database2",
+                    str(tmp / "new_j.sqlite"), "--merged_database", out)
+        assert line == [json.dumps({"merged": out, "n_images": 5})]
+        with FeatureDatabase(out) as db:
+            merged[tag] = [(n, db.read_descriptors(i).shape)
+                           for i, n in db.iter_images()]
+        with pytest.raises(SystemExit, match="must not exist"):
+            main(["database_merger", "--database1", out, "--database2", out,
+                  "--merged_database", out])
+    assert merged["t"] == merged["j"]

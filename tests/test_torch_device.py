@@ -142,3 +142,93 @@ def test_cli_serve_without_device_cpu_fails(pack, tmp_path):
     assert r.returncode != 0
     assert 'device="cpu"' in r.stderr
     assert r.stdout.strip() == ""
+
+
+@pytest.fixture
+def small_db(tmp_path):
+    """A FeatureDatabase of two images that share 40 descriptors under a
+    shift, and a match list of their true pairs."""
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    rng = np.random.default_rng(2)
+    d = np.abs(rng.normal(size=(40, 16))).astype(np.float32)
+    xy = rng.uniform(0, 200, (40, 2)).astype(np.float32)
+    path = str(tmp_path / "db.sqlite")
+    with FeatureDatabase(path) as db:
+        for i in range(2):
+            iid = db.add_image(f"im{i}.jpg", 200, 200)
+            db.write_keypoints(iid, np.c_[xy + 3.0 * i, np.zeros((40, 2))])
+            db.write_descriptors(iid, d)
+        db.commit()
+    lst = tmp_path / "matches.txt"
+    lst.write_text("im0.jpg im1.jpg\n" + "\n".join(f"{i} {i}"
+                                                   for i in range(40)))
+    return path, str(lst)
+
+
+def test_match_pipelines_without_card_raise(no_card, small_db):
+    """match_pairs, import_feature_matches and spatial_pairs run on the
+    card unless asked for the CPU; numpy handed to the matcher or the
+    two-view estimator goes to the card too, CPU tensors stay."""
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    from cvt_tpu_torch.match import (estimate_two_view_geometry,
+                                     match_descriptors)
+    from cvt_tpu_torch.match import pipelines as pl
+    path, lst = small_db
+    pos = np.zeros((2, 2), np.float32)
+    with FeatureDatabase(path) as db:
+        for call in (lambda dev: pl.match_pairs(db, [(1, 2)], device=dev),
+                     lambda dev: pl.import_feature_matches(db, lst,
+                                                           device=dev),
+                     lambda dev: pl.spatial_pairs([1, 2], pos, device=dev)):
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                call(None)
+        assert pl.match_pairs(db, [(1, 2)], device="cpu").n_verified == 1
+        assert pl.import_feature_matches(db, lst, device="cpu").n_pairs == 1
+        assert pl.spatial_pairs([1, 2], pos, device="cpu") == [(1, 2)]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        match_descriptors(X[:8], X[8:16])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        estimate_two_view_geometry(None, X[:20, :2], X[20:40, :2])
+    res = match_descriptors(torch.from_numpy(X[:8]), torch.from_numpy(X))
+    assert res.idx2.device == torch.device("cpu")
+    np.testing.assert_array_equal(res.idx2.numpy(), np.arange(8))
+
+
+def test_cli_matcher_without_device_cpu_fails(small_db):
+    """exhaustive_matcher defaults to the card: without one (patched in
+    the subprocess) it exits non-zero before matching, and with --device
+    cpu it matches and verifies the pair."""
+    path, _ = small_db
+    code = ("import sys, runpy, torch; torch.cuda.is_available = "
+            "lambda: False; sys.argv = ['cli'] + sys.argv[1:]; "
+            "runpy.run_module('cvt_tpu_torch.cli', run_name='__main__')")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "LOCAL_RANK")}
+    env["PYTHONPATH"] = ROOT
+    runs = [subprocess.run([sys.executable, "-c", code, "exhaustive_matcher",
+                            "--database", path, *dev], capture_output=True,
+                           text=True, env=env, cwd=ROOT, timeout=120)
+            for dev in ((), ("--device", "cpu"))]
+    assert runs[0].returncode != 0 and runs[0].stdout.strip() == ""
+    assert 'device="cpu"' in runs[0].stderr
+    assert runs[1].returncode == 0, runs[1].stderr[-2000:]
+    assert '"n_verified": 1' in runs[1].stdout
+
+
+def test_database_commands_need_no_card(no_card, small_db, tmp_path,
+                                        capsys):
+    """The database commands touch no device: they run without a card and,
+    like cvt_tpu's, take no --device."""
+    import json
+    from cvt_tpu_torch.cli import main
+    path, _ = small_db
+    new, merged = str(tmp_path / "new.sqlite"), str(tmp_path / "m.sqlite")
+    main(["database_creator", "--database", new])
+    main(["database_merger", "--database1", path, "--database2", new,
+          "--merged_database", merged])
+    main(["database_cleaner", "--database", path, "--type", "matches"])
+    assert [json.loads(x) for x in capsys.readouterr().out.splitlines()] == [
+        {"created": new}, {"merged": merged, "n_images": 2},
+        {"cleared": "matches"}]
+    with pytest.raises(SystemExit):
+        main(["database_creator", "--database", new, "--device", "cpu"])
