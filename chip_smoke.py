@@ -135,6 +135,38 @@
    (with --database) and on 4 views, then `cli retrieve`, as
    subprocesses: the ranked names must equal the in-process extract_sift
    -> ImageRetrievalIndex.search results.
+17. The matching front end: a seeded 64-image FeatureDatabase at K 8,192
+   (multiview_scene), match_pairs over the 2,016 exhaustive pairs at
+   COLMAP's defaults with per-pair CUDA-event splits, guided matching
+   over the 63 sequential pairs, one calibrated estimate at 4 px and 1 px,
+   and 16 pairs again on the CPU against the card.
+18. The five matcher commands, matches_importer and the three database
+   commands as subprocesses on 16 rendered views, each line against the
+   same work in-process.
+19. The reconstruction on step 17's scene and its verified inlier tables:
+   tracks (CorrespondenceGraph.build_tracks over every verified pair;
+   gate: >= 0.99 of tracks pure, every observation of one true point);
+   image_to_world / world_to_image over all 64 x 8,192 keypoints, pinhole
+   against (uv - c) / f and an opencv lens (k1 -0.12, k2 0.03, p1 5e-4,
+   p2 -3e-4) as a round trip, the card against the CPU; every track
+   triangulated from the true poses, then ransac_pnp per image at 4 px
+   (gate: every image registers with >= 30 inliers, within RC_GATES'
+   rotation and centre errors); bundle_adjust at its defaults (20 LM x 30
+   CG, cameras 1-2 fixed) from seeded perturbed poses, re-triangulated,
+   then filter_points at 4 px and filter_images(10) (gates on the mean
+   reprojection error and, after a similarity alignment, the rotation and
+   centre errors); the same BA on 8 images on the CPU and the card
+   (cost, poses, points within RC_GATES); cluster_scene over the
+   inlier-weighted match graph (leaves <= 16); save and load on the CPU,
+   equal.
+20. image_deleter (4 names, on step 19's scene and on a feature database),
+   image_filterer (a threshold that drops images) and image_undistorter
+   (--device cuda and --device cpu, 16 procedural 1,200 x 1,600 x 3
+   frames through step 19's opencv lens) as parallel subprocesses: every
+   line and file equals the same call in-process, the card's frames
+   within 1e-4 of the CPU's. The three kernels' counts, zeroed before step
+   19, stay 0 through step 20. A torch.profiler breakdown of one
+   bundle_adjust call on step 19's scene is printed at the end.
 
 Every ADC kernel-against-twin check demands segpack and tiletop bitwise
 equal, except that a row whose norm/qs lies within 1e-4 of a half-integer
@@ -199,6 +231,23 @@ MV_CAMS, MV_K, MV_W, MV_H, MV_F = 64, 8192, 1600, 1200, 1400.0
 MV_GENERAL, MV_FACADE, MV_DISTRACT, MV_TWINS = 16_000, 9000, 1024, 0.15
 MV_NOISE_PX, MV_DESC_NOISE, MV_CPU_PAIRS, MV_PROFILE_PAIRS = 0.5, 0.03, 16, 8
 MATCH_CLI_VIEWS, MATCH_CLI_WORDS = 16, 256
+# the reconstruction (steps 19-20) on step 17's scene and verified pairs:
+# COLMAP's 4 px filters (Mapper.filter_max_reproj_error,
+# abs_pose_max_error), 30 inliers to register (abs_pose_min_num_inliers),
+# an opencv lens of a real camera's order (barrel k1, k2, small
+# tangential), seeded pose noise for bundle adjustment
+RC_PX, RC_MIN_INLIERS, RC_LENS = 4.0, 30, (-0.12, 0.03, 5e-4, -3e-4)
+RC_ROT_NOISE, RC_T_NOISE, RC_CUT, RC_LEAF = 0.005, 0.05, 8, 16
+RC_DELETE, RC_UNDIST_N, RC_PROFILE_ITERS = 4, 16, 20
+# gates, set from a CPU run of steps 19-20 on the same 64 cameras with an
+# eighth of the points (PnP max 0.16 deg / 0.031; BA 0.60 px, max 0.024
+# deg / 0.0033 after) with margin; centres in scene units (arc radius 12).
+# Card against CPU: image_to_world 1e-5 (normalized), undistorted frames
+# 1e-4 (a source coordinate near 1,600 px has a float32 ulp of 1.2e-4 px)
+RC_GATES = dict(pure=0.99, lens_px=0.01, pnp_rot_deg=0.5, pnp_centre=0.1,
+                ba_px=0.8, ba_rot_deg=0.1, ba_centre=0.02,
+                cut_cost_rtol=1e-3, cut_pose=1e-3, cut_point=1e-2,
+                cam_cpu=1e-5, undistort=1e-4)
 # H100 SXM data sheet: dense int8 tensor-core rate, HBM3 bandwidth
 PEAK_INT8_OPS, HBM_BYTES_PER_S = 1.979e15, 3.35e12
 SASS_CLASSES = ("IMMA", "IGMMA", "IDP4A")
@@ -1878,8 +1927,13 @@ def shared_points(images, a: int, b: int) -> int:
 
 
 def rotation_error_deg(r_est: np.ndarray, r_true: np.ndarray) -> float:
-    c = (np.trace(r_est @ r_true.T) - 1.0) / 2.0
-    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+    """The angle of r_est r_true^T in degrees, taken by scipy from the
+    nearest rotation: a float32 r_est is orthogonal only to ~1e-7, which
+    the arccos of the trace near 1 turns into ~0.02 degrees of noise."""
+    from scipy.spatial.transform import Rotation
+    return float(np.degrees(Rotation.from_matrix(
+        np.asarray(r_est, np.float64)
+        @ np.asarray(r_true, np.float64).T).magnitude()))
 
 
 def near_tie_rows(d1: np.ndarray, d2: np.ndarray, ratio: float,
@@ -2062,7 +2116,7 @@ def phase_match(stamp: str) -> dict:
         res["cpu"].update(s_per_pair={k: v / len(few)
                                       for k, v in cmp_s.items()})
     res["phase_s"] = time.perf_counter() - t_phase
-    res["_images"] = images
+    res["_images"], res["_tables"] = images, tables
     return res
 
 
@@ -2303,7 +2357,581 @@ def run_matching(stamp: str) -> dict:
     print(f"launches during steps 17-18: {launches} {stamp}")
     assert not any(launches.values()), launches
     print(f"steps 17-18 took {time.perf_counter() - t_all:.1f} s {stamp}")
-    return {"images": mt.pop("_images")}
+    return {"images": mt.pop("_images"), "tables": mt.pop("_tables")}
+
+
+class DeviceSpan:
+    """While entered, a module function is wrapped in CUDA events; `ms`
+    sums the device time of its calls (first launch to last)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.events = module, name, []
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.saved(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+        torch.cuda.synchronize()
+        self.ms = sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def true_poses(images):
+    """World -> camera (rvec, tvec) of each image, float64 (scipy's
+    rotation vector: the float32 axis extraction is ill-conditioned near
+    the arc's 180-degree rotations)."""
+    from scipy.spatial.transform import Rotation
+    return [(Rotation.from_matrix(im["rot"]).as_rotvec(),
+             -im["rot"] @ im["centre"]) for im in images]
+
+
+def normalized_keypoints(im) -> np.ndarray:
+    return (im["kp"][:, :2].astype(np.float64)
+            - [MV_W / 2, MV_H / 2]) / MV_F
+
+
+def track_purity(tracks, images) -> float:
+    """Share of tracks whose observations all carry one true point id."""
+    flat = np.concatenate(tracks)
+    ids = np.stack([im["ids"] for im in images])[flat[:, 0] - 1, flat[:, 1]]
+    starts = np.cumsum([0] + [len(t) for t in tracks[:-1]])
+    lo, hi = np.minimum.reduceat(ids, starts), np.maximum.reduceat(ids,
+                                                                   starts)
+    return float(np.mean((lo == hi) & (lo >= 0)))
+
+
+def observations(rec) -> dict:
+    """{image id: (world points [N, 3], normalized keypoints [N, 2])} of
+    the 3D points each image observes."""
+    pts = list(rec.points3d.values())
+    flat = np.concatenate([p.track for p in pts])
+    xyz = np.repeat(np.stack([p.xyz for p in pts]),
+                    [len(p.track) for p in pts], axis=0)
+    return {iid: (xyz[flat[:, 0] == iid],
+                  im.keypoints[flat[flat[:, 0] == iid, 1]])
+            for iid, im in rec.images.items()}
+
+
+def centre_of(rvec, tvec) -> np.ndarray:
+    from scipy.spatial.transform import Rotation
+    return -Rotation.from_rotvec(rvec).as_matrix().T @ tvec
+
+
+def pose_errors(rec, images) -> dict:
+    """Rotation (degrees) and centre errors of every registered image after
+    a similarity_transform alignment of the centres to the truth."""
+    from scipy.spatial.transform import Rotation
+    from cvt_tpu_torch.match import similarity_transform
+    ids = sorted(rec.images)
+    est = np.stack([centre_of(rec.images[i].rvec, rec.images[i].tvec)
+                    for i in ids])
+    true = np.stack([images[i - 1]["centre"] for i in ids])
+    sc, r, t = (a.cpu().double().numpy() for a in similarity_transform(
+        torch.from_numpy(est).float(), torch.from_numpy(true).float()))
+    cerr = np.linalg.norm(sc * est @ r.T + t - true, axis=1)
+    rerr = [rotation_error_deg(Rotation.from_rotvec(rec.images[i].rvec)
+                               .as_matrix() @ r.T, images[i - 1]["rot"])
+            for i in ids]
+    return {"scale": float(sc), "centre_mean": float(cerr.mean()),
+            "centre_max": float(cerr.max()),
+            "rot_mean_deg": float(np.mean(rerr)),
+            "rot_max_deg": float(np.max(rerr))}
+
+
+def scene_cost(rec) -> tuple[float, float, int]:
+    """(0.5 * sum of squared reprojection errors, mean error in pixels,
+    observations) of a scene in normalized coordinates."""
+    from cvt_tpu_torch.match import reprojection_errors
+    prob = rec.to_ba_problem()[0]
+    err = reprojection_errors(prob.poses, prob.points, prob.cam_idx,
+                              prob.pt_idx, prob.uv, prob.mask).double()
+    return (float(0.5 * (err * err).sum()), float(err.mean()) * MV_F,
+            int(err.numel()))
+
+
+def near_limit(rec, limit: float) -> int:
+    """Points whose mean reprojection error lies within 1e-5 relative of
+    `limit`: where filter_points' float64 mean and cvt_tpu's float32 mean
+    may decide apart."""
+    from cvt_tpu_torch.match import reprojection_errors
+    prob = rec.to_ba_problem()[0]
+    err = reprojection_errors(prob.poses, prob.points, prob.cam_idx,
+                              prob.pt_idx, prob.uv, prob.mask).cpu().numpy()
+    pid = prob.pt_idx.cpu().numpy()
+    mean = np.bincount(pid, weights=err) / np.maximum(np.bincount(pid), 1)
+    return int(np.sum(np.abs(mean / limit - 1.0) < 1e-5))
+
+
+def perturbed_scene(images, tracks, poses, ids, device, seed: int):
+    """A Reconstruction of `ids` whose poses past the first two carry
+    seeded noise (RC_ROT_NOISE rad per axis, RC_T_NOISE per translation
+    component), triangulated from those poses."""
+    from cvt_tpu_torch.match import Reconstruction
+    rng = np.random.default_rng(seed)
+    rec = Reconstruction(device=device)
+    for k, iid in enumerate(ids):
+        rv, tv = poses[iid - 1]
+        if k >= 2:
+            rv = rv + rng.normal(0, RC_ROT_NOISE, 3)
+            tv = tv + rng.normal(0, RC_T_NOISE, 3)
+        rec.register_image(iid, f"view_{iid - 1:03d}", rv, tv,
+                           normalized_keypoints(images[iid - 1]))
+    rec.triangulate(tracks)
+    return rec
+
+
+def same_reconstruction(a, b) -> bool:
+    if sorted(a.images) != sorted(b.images) or list(a.points3d) != list(
+            b.points3d) or a._next_pt != b._next_pt:
+        return False
+    for iid, im in a.images.items():
+        o = b.images[iid]
+        if (im.name, im.camera_id) != (o.name, o.camera_id) or not all(
+                np.array_equal(getattr(im, f), getattr(o, f))
+                for f in ("rvec", "tvec", "keypoints")):
+            return False
+    return all(np.array_equal(p.xyz, b.points3d[k].xyz)
+               and np.array_equal(p.track, b.points3d[k].track)
+               and p.error == b.points3d[k].error
+               for k, p in a.points3d.items())
+
+
+def phase_reconstruct(images, tables, tmp: str) -> dict:
+    """Step 19: tracks from step 17's verified inliers, the camera models
+    over every keypoint, registration by PnP against points triangulated
+    from the true poses, bundle adjustment from perturbed poses (and at a
+    cut size on the CPU against the card), scene clustering, save/load."""
+    import copy
+    from cvt_tpu_torch.match import (CorrespondenceGraph, Reconstruction,
+                                     cluster_scene, image_to_world,
+                                     ransac_pnp, world_to_image)
+    from cvt_tpu_torch.match import reconstruction as R
+    res = {}
+    t_phase = time.perf_counter()
+    verified = {p: v[1] for p, v in tables.items()
+                if v[1] is not None and v[2] not in (None, 1)}
+    # 1. tracks
+    graph = CorrespondenceGraph()
+    t0 = time.perf_counter()
+    for (a, b), rows in verified.items():
+        graph.add_correspondences(a, b, rows)
+    tracks = graph.build_tracks()
+    res["tracks_s"] = time.perf_counter() - t0
+    lens = np.array([len(t) for t in tracks])
+    res["tracks"] = {"pairs": len(verified),
+                     "correspondences": int(sum(len(r) for r in
+                                                verified.values())),
+                     "count": len(tracks), "mean_len": float(lens.mean()),
+                     "median_len": float(np.median(lens)),
+                     "max_len": int(lens.max()),
+                     "pure": track_purity(tracks, images)}
+    assert res["tracks"]["pure"] >= RC_GATES["pure"], res["tracks"]
+
+    # 2. camera models over every keypoint, on the card and the CPU
+    uv = torch.from_numpy(np.stack([im["kp"][:, :2] for im in images])
+                          ).to(DEV)                     # [64, K, 2]
+    pin = torch.tensor([MV_F, MV_F, MV_W / 2, MV_H / 2], device=DEV)
+    lens_p = torch.tensor([MV_F, MV_F, MV_W / 2, MV_H / 2, *RC_LENS],
+                          device=DEV)
+    xy = image_to_world("pinhole", pin, uv)
+    cams = {"pinhole_err": float((xy - (uv - pin[2:]) / MV_F).abs().max())}
+    cams["pinhole_back_px"] = float((world_to_image("pinhole", pin, xy)
+                                     - uv).abs().max())
+    cams["opencv_ms"], _ = cuda_median_ms(
+        lambda: image_to_world("opencv", lens_p, uv), 5)
+    xy_l = image_to_world("opencv", lens_p, uv)
+    cams["opencv_back_px"] = float((world_to_image("opencv", lens_p, xy_l)
+                                    - uv).abs().max())
+    xy_cpu = image_to_world("opencv", lens_p.cpu(), uv.cpu())
+    cams["card_vs_cpu"] = float((xy_l.cpu() - xy_cpu).abs().max())
+    cams["points"] = int(uv.shape[0] * uv.shape[1])
+    res["cameras"] = cams
+    assert cams["opencv_back_px"] <= RC_GATES["lens_px"], cams
+    assert cams["card_vs_cpu"] <= RC_GATES["cam_cpu"], cams
+    assert cams["pinhole_err"] <= 1e-6, cams
+
+    # 3. registration: points from the true poses, then PnP per image
+    poses = true_poses(images)
+    ids = list(range(1, MV_CAMS + 1))
+    truth = Reconstruction(device=DEV)
+    for iid in ids:
+        truth.register_image(iid, f"view_{iid - 1:03d}", *poses[iid - 1],
+                             normalized_keypoints(images[iid - 1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with DeviceSpan(R, "triangulate_tracks") as span:
+        res["true_points"] = truth.triangulate(tracks,
+                                               max_error=RC_PX / MV_F)
+    res["true_triangulate_s"] = time.perf_counter() - t0
+    res["true_triangulate_device_ms"] = span.ms
+    gen = torch.Generator().manual_seed(SEED)
+    pnp = []
+    t0 = time.perf_counter()
+    obs = observations(truth)
+    for iid in ids:
+        world, norm = obs[iid]
+        r, t, _, n_inl = ransac_pnp(gen, torch.from_numpy(world).float().to(
+            DEV), torch.from_numpy(norm).float().to(DEV),
+            threshold=RC_PX / MV_F)
+        r, t = r.cpu().double().numpy(), t.cpu().double().numpy()
+        im = images[iid - 1]
+        pnp.append({"image": iid, "obs": len(world), "inliers": int(n_inl),
+                    "rot_deg": rotation_error_deg(r, im["rot"]),
+                    "centre": float(np.linalg.norm(-r.T @ t
+                                                   - im["centre"]))})
+    res["pnp_s"] = time.perf_counter() - t0
+    res["pnp"] = pnp
+    bad = [p for p in pnp if p["inliers"] < RC_MIN_INLIERS
+           or p["rot_deg"] > RC_GATES["pnp_rot_deg"]
+           or p["centre"] > RC_GATES["pnp_centre"]]
+    assert not bad, bad
+
+    # 4. bundle adjustment from perturbed poses
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with DeviceSpan(R, "triangulate_tracks") as span:
+        rec = perturbed_scene(images, tracks, poses, ids, DEV, SEED + 19)
+    res["triangulate_s"] = time.perf_counter() - t0
+    res["triangulate_device_ms"] = span.ms
+    res["before"] = dict(zip(("cost", "mean_px", "obs"), scene_cost(rec)),
+                         **pose_errors(rec, images))
+    res["points"], res["cameras_n"] = len(rec.points3d), len(rec.images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with DeviceSpan(R, "bundle_adjust") as span:
+        res["ba_cost"] = rec.bundle_adjust(n_fixed_poses=2)
+    res["ba_s"] = time.perf_counter() - t0
+    res["ba_device_ms"] = span.ms
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["after"] = dict(zip(("cost", "mean_px", "obs"), scene_cost(rec)),
+                        **pose_errors(rec, images))
+    res["near_limit"] = near_limit(rec, RC_PX / MV_F)
+    t0 = time.perf_counter()
+    res["filtered_points"] = rec.filter_points(RC_PX / MV_F)
+    res["filtered_images"] = rec.filter_images(10)
+    res["filter_s"] = time.perf_counter() - t0
+    a = res["after"]
+    assert a["mean_px"] <= RC_GATES["ba_px"], a
+    assert a["rot_max_deg"] <= RC_GATES["ba_rot_deg"], a
+    assert a["centre_max"] <= RC_GATES["ba_centre"], a
+    assert res["ba_cost"] < res["before"]["cost"], res
+
+    # the same BA on the CPU and the card at a cut size
+    cut = ids[:RC_CUT]
+    cut_tracks = [t[t[:, 0] <= RC_CUT] for t in tracks]
+    cut_tracks = [t for t in cut_tracks if len(t) >= 2]
+    base = perturbed_scene(images, cut_tracks, poses, cut, "cpu", SEED + 20)
+    both = {}
+    for dev in ("cpu", DEV):
+        sc = copy.deepcopy(base)
+        sc.device = dev
+        t0 = time.perf_counter()
+        cost = sc.bundle_adjust(n_fixed_poses=2)
+        both[dev] = (sc, cost, time.perf_counter() - t0)
+    (c_sc, c_cost, c_s), (g_sc, g_cost, g_s) = both["cpu"], both[DEV]
+    pose_d = max(float(np.abs(np.r_[c_sc.images[i].rvec - g_sc.images[i].rvec,
+                                    c_sc.images[i].tvec - g_sc.images[i].tvec]
+                              ).max()) for i in cut)
+    pt_d = np.array([np.abs(c_sc.points3d[k].xyz - g_sc.points3d[k].xyz).max()
+                     for k in c_sc.points3d])
+    res["cut"] = {"images": RC_CUT, "points": len(base.points3d),
+                  "cost_cpu": c_cost, "cost_card": g_cost,
+                  "cost_rel": abs(g_cost - c_cost) / c_cost,
+                  "pose_max": pose_d, "point_max": float(pt_d.max()),
+                  "point_p99": float(np.percentile(pt_d, 99)),
+                  "cpu_s": c_s, "card_s": g_s}
+    cu = res["cut"]
+    assert cu["cost_rel"] <= RC_GATES["cut_cost_rtol"], cu
+    assert cu["pose_max"] <= RC_GATES["cut_pose"], cu
+    assert cu["point_max"] <= RC_GATES["cut_point"], cu
+
+    # 5. scene clustering over the match graph
+    edges = np.array([(a - 1, b - 1) for a, b in verified])
+    weights = [float(len(r)) for r in verified.values()]
+    root = cluster_scene(ids, edges, weights, leaf_max_images=RC_LEAF)
+    leaves = root.leaves()
+    res["leaves"] = [len(lf.image_ids) for lf in leaves]
+    assert sorted(i for lf in leaves for i in lf.image_ids) == ids
+    assert max(res["leaves"]) <= RC_LEAF
+
+    # 6. save, then load on the CPU
+    path = os.path.join(tmp, "scene.npz")
+    t0 = time.perf_counter()
+    rec.save(path)
+    loaded = Reconstruction.load(path, device="cpu")
+    res["save_load_s"] = time.perf_counter() - t0
+    assert same_reconstruction(rec, loaded), "loaded scene differs"
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["_scene"], res["_rec"] = path, rec
+    return res
+
+
+def run_recon_cli(images, scene: str, tmp: str) -> dict:
+    """Step 20: image_deleter (on step 19's scene and on a feature
+    database), image_filterer and image_undistorter (--device cuda and
+    --device cpu) as subprocesses, in parallel, each against the same call
+    in-process."""
+    import contextlib
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+    from cvt_tpu_torch.apps import undistort_images
+    from cvt_tpu_torch.cli import main as cli_main
+    from cvt_tpu_torch.io.database import FeatureDatabase
+    from cvt_tpu_torch.io.datasets import procedural_images
+    from cvt_tpu_torch.match import Reconstruction
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def path(name: str) -> str:
+        return os.path.join(tmp, name)
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "cvt_tpu_torch.cli",
+                              *args], capture_output=True, text=True,
+                             cwd=root, timeout=300)
+        if run.returncode:
+            raise RuntimeError(f"cli {args[0]} exited {run.returncode}: "
+                               f"{run.stderr[-2000:]}")
+        return run.stdout.strip().splitlines(), time.perf_counter() - t0
+
+    def inproc(*args):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli_main(list(args))
+        return out.getvalue().strip().splitlines()
+
+    rec = Reconstruction.load(scene, device="cpu")
+    # the names of every other one of the first 2 * RC_DELETE images, in
+    # the scene and in a database holding those images
+    db_ids = sorted(rec.images)[:2 * RC_DELETE]
+    names = [rec.images[i].name for i in db_ids[::2]]
+    with open(path("names.txt"), "w") as f:
+        f.write("\n".join(names + ["missing.jpg"]) + "\n")
+    with FeatureDatabase(path("db.sqlite")) as db:
+        for i in db_ids:
+            iid = db.add_image(rec.images[i].name, width=MV_W, height=MV_H)
+            db.write_keypoints(iid, images[i - 1]["kp"])
+            db.write_descriptors(iid, images[i - 1]["desc"])
+        db.commit()
+    for tag in ("cli", "in"):
+        shutil.copy(path("db.sqlite"), path(f"db_{tag}.sqlite"))
+    counts = sorted(rec.num_observations(i) for i in rec.images)
+    min_obs = str(counts[RC_DELETE] + 1)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:     # numpy releases the GIL
+        gray = np.concatenate(list(pool.map(lambda c: procedural_images(
+            RC_UNDIST_N // 4, MV_H, MV_W, seed=SEED + 21 + c), range(4))))
+    rgb = np.stack([gray, gray[:, ::-1], 1.0 - gray], -1)
+    np.save(path("frames.npy"), (rgb * 255).round().astype(np.uint8))
+    out = {"frames_s": time.perf_counter() - t0}
+    lens = ",".join(str(v) for v in (MV_F, MV_F, MV_W / 2, MV_H / 2,
+                                     *RC_LENS))
+    und = ("image_undistorter", "--images", path("frames.npy"), "--model",
+           "opencv", "--params", lens)
+    calls = {
+        "image_deleter": ("image_deleter", "--input_path", scene,
+                          "--output_path", path("del_cli.npz"),
+                          "--image_names_path", path("names.txt")),
+        "image_deleter_db": ("image_deleter", "--database",
+                             path("db_cli.sqlite"), "--image_names_path",
+                             path("names.txt")),
+        "image_filterer": ("image_filterer", "--input_path", scene,
+                           "--output_path", path("filt_cli.npz"),
+                           "--min_num_observations", min_obs),
+        "undistort_cuda": und + ("--out", path("und_cuda.npy"),
+                                 "--device", DEV),
+        "undistort_cpu": und + ("--out", path("und_cpu.npy"), "--device",
+                                "cpu")}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(calls)) as pool:
+        got = dict(zip(calls, pool.map(lambda k: cli(*calls[k]), calls)))
+    out["wall_s"] = time.perf_counter() - t0
+    out["process_s"] = {k: v[1] for k, v in got.items()}
+    want = {
+        "image_deleter": inproc("image_deleter", "--input_path", scene,
+                                "--output_path", path("del_in.npz"),
+                                "--image_names_path", path("names.txt")),
+        "image_deleter_db": inproc("image_deleter", "--database",
+                                   path("db_in.sqlite"),
+                                   "--image_names_path", path("names.txt")),
+        "image_filterer": inproc("image_filterer", "--input_path", scene,
+                                 "--output_path", path("filt_in.npz"),
+                                 "--min_num_observations", min_obs),
+        "undistort_cuda": inproc(*und, "--out", path("und_in.npy"),
+                                 "--device", DEV)}
+    for k, lines in want.items():
+        assert got[k][0] == lines, (k, got[k][0], lines)
+    assert got["undistort_cpu"][0] == want["undistort_cuda"]
+    out["lines"] = {k: v[0][-1] for k, v in got.items()}
+    for a, b in (("del_cli.npz", "del_in.npz"),
+                 ("filt_cli.npz", "filt_in.npz")):
+        assert same_reconstruction(
+            Reconstruction.load(path(a), device="cpu"),
+            Reconstruction.load(path(b), device="cpu")), a
+    deleted = Reconstruction.load(path("del_cli.npz"), device="cpu")
+    assert len(deleted.images) == len(rec.images) - RC_DELETE
+    assert json.loads(out["lines"]["image_deleter_db"])["deleted"] == \
+        RC_DELETE
+    with FeatureDatabase(path("db_cli.sqlite")) as a, \
+            FeatureDatabase(path("db_in.sqlite")) as b:
+        assert list(a.iter_images()) == list(b.iter_images())
+        assert a.num_images() == RC_DELETE
+    out["filtered"] = out["lines"]["image_filterer"]
+    card = np.load(path("und_cuda.npy"))
+    assert np.array_equal(card, np.load(path("und_in.npy")))
+    out["cuda_vs_cpu"] = float(np.abs(card - np.load(path("und_cpu.npy"))
+                                      ).max())
+    assert out["cuda_vs_cpu"] <= RC_GATES["undistort"], out["cuda_vs_cpu"]
+    frames = torch.from_numpy(np.load(path("frames.npy"))).to(DEV).float()
+    frames /= 255.0
+    params = np.float32([MV_F, MV_F, MV_W / 2, MV_H / 2, *RC_LENS])
+    ms, _ = cuda_median_ms(lambda: undistort_images(frames, "opencv",
+                                                    params), 5)
+    out["undistort_ms_per_image"] = ms / RC_UNDIST_N
+    out["min_obs"] = min_obs
+    return out
+
+
+def ba_profile(rec, top: int = 10) -> dict:
+    """torch.profiler over one bundle_adjust call on step 19's scene (its
+    BAProblem, RC_PROFILE_ITERS LM steps): top device and host operations
+    and the count of kernel launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cvt_tpu_torch.match import bundle as B
+    prob = rec.to_ba_problem()[0]
+    B.bundle_adjust(prob, iters=1, cg_iters=1, n_fixed_poses=2)      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        B.bundle_adjust(prob, iters=RC_PROFILE_ITERS, n_fixed_poses=2)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in ev if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total), key=lambda o: -o[1])
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in ev if e.self_cpu_time_total > 0),
+                  key=lambda o: -o[1])
+    launches = sum(e.count for e in ev if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cuLaunchKernelEx"))
+    return {"wall_ms": wall, "device_ms": sum(o[1] for o in ops),
+            "top": ops[:top], "host": host[:top], "launches": launches,
+            "obs": int(prob.cam_idx.numel())}
+
+
+def run_reconstruction(stamp: str, match: dict) -> dict:
+    """Steps 19-20 with their prints; returns the scene for the profile."""
+    import tempfile
+    t_all = time.perf_counter()
+    zero_launch_counts()
+    images, tables = match["images"], match["tables"]
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = phase_reconstruct(images, tables, tmp)
+        tr = rc["tracks"]
+        print(f"tracks from {tr['pairs']} verified pairs "
+              f"({tr['correspondences']} inlier correspondences): "
+              f"{tr['count']} tracks, length mean {tr['mean_len']:.2f}, "
+              f"median {tr['median_len']:.0f}, max {tr['max_len']}; "
+              f"{tr['pure']:.4f} pure (gate {RC_GATES['pure']}); "
+              f"build_tracks {rc['tracks_s']:.2f} s host {stamp}")
+        c = rc["cameras"]
+        print(f"camera models over {c['points']} keypoints: pinhole "
+              f"image_to_world vs (uv - c) / f max {c['pinhole_err']:.3g}, "
+              f"back {c['pinhole_back_px']:.3g} px; opencv (k1 "
+              f"{RC_LENS[0]}, k2 {RC_LENS[1]}, p1 {RC_LENS[2]}, p2 "
+              f"{RC_LENS[3]}) round trip max {c['opencv_back_px']:.3g} px "
+              f"(gate {RC_GATES['lens_px']}), image_to_world "
+              f"{c['opencv_ms']:.3f} ms (CUDA events), card vs CPU max "
+              f"{c['card_vs_cpu']:.3g} (gate {RC_GATES['cam_cpu']}) "
+              f"{stamp}")
+        pn = rc["pnp"]
+        print(f"true-pose triangulation: {rc['true_points']} points "
+              f"(<= {RC_PX} px mean error), {rc['true_triangulate_s']:.2f} "
+              f"s wall, {rc['true_triangulate_device_ms']:.2f} ms "
+              f"triangulate_tracks (CUDA events) {stamp}")
+        print(f"ransac_pnp per image ({RC_PX} px, 64 hypotheses): all "
+              f"{len(pn)} registered (>= {RC_MIN_INLIERS} inliers); "
+              f"inliers min {min(p['inliers'] for p in pn)} / median "
+              f"{np.median([p['inliers'] for p in pn]):.0f}; rotation "
+              f"error mean {np.mean([p['rot_deg'] for p in pn]):.4f}, max "
+              f"{max(p['rot_deg'] for p in pn):.4f} deg (gate "
+              f"{RC_GATES['pnp_rot_deg']}); centre error mean "
+              f"{np.mean([p['centre'] for p in pn]):.5f}, max "
+              f"{max(p['centre'] for p in pn):.5f} (gate "
+              f"{RC_GATES['pnp_centre']}); {rc['pnp_s']:.2f} s {stamp}")
+        print("  per image (image, observations, inliers, rotation deg, "
+              "centre): " + "; ".join(
+                  f"{p['image']} {p['obs']} {p['inliers']} "
+                  f"{p['rot_deg']:.4f} {p['centre']:.5f}" for p in pn))
+        b, a = rc["before"], rc["after"]
+        print(f"bundle_adjust (20 LM x 30 CG, cameras 1-2 fixed; pose noise "
+              f"{RC_ROT_NOISE} rad, {RC_T_NOISE} per axis): O {b['obs']}, "
+              f"P {rc['points']}, C {rc['cameras_n']}; cost {b['cost']:.6g}"
+              f" -> {a['cost']:.6g}; mean reprojection error "
+              f"{b['mean_px']:.4f} -> {a['mean_px']:.4f} px (gate "
+              f"{RC_GATES['ba_px']}); after alignment rotation error mean "
+              f"{a['rot_mean_deg']:.5f}, max {a['rot_max_deg']:.5f} deg "
+              f"(before max {b['rot_max_deg']:.4f}; gate "
+              f"{RC_GATES['ba_rot_deg']}), centre error mean "
+              f"{a['centre_mean']:.5f}, max {a['centre_max']:.5f} (before "
+              f"max {b['centre_max']:.4f}; gate {RC_GATES['ba_centre']}) "
+              f"{stamp}")
+        print(f"bundle_adjust {rc['ba_s']:.3f} s wall, "
+              f"{rc['ba_device_ms']:.2f} ms first launch to last (CUDA "
+              f"events), {rc['ba_device_ms'] / 20:.2f} ms per LM step; "
+              f"triangulation {rc['triangulate_s']:.3f} s with host packing,"
+              f" {rc['triangulate_device_ms']:.2f} ms triangulate_tracks; "
+              f"peak memory allocated {rc['peak_gb']:.3f} GB; filter_points "
+              f"({RC_PX} px) removed {rc['filtered_points']} ("
+              f"{rc['near_limit']} points within 1e-5 of the limit), "
+              f"filter_images(10) removed {rc['filtered_images']} "
+              f"({rc['filter_s']:.2f} s) {stamp}")
+        cu = rc["cut"]
+        print(f"bundle_adjust card vs CPU on {cu['images']} images, "
+              f"{cu['points']} points: cost {cu['cost_card']:.8g} / "
+              f"{cu['cost_cpu']:.8g} (rel {cu['cost_rel']:.3g}, gate "
+              f"{RC_GATES['cut_cost_rtol']}), poses max "
+              f"{cu['pose_max']:.3g} (gate {RC_GATES['cut_pose']}), points "
+              f"max {cu['point_max']:.3g}, p99 {cu['point_p99']:.3g} (gate "
+              f"{RC_GATES['cut_point']}); {cu['card_s']:.2f} s card, "
+              f"{cu['cpu_s']:.2f} s CPU {stamp}")
+        print(f"cluster_scene (inlier-weighted match graph, leaves <= "
+              f"{RC_LEAF}): {len(rc['leaves'])} leaves of {rc['leaves']}; "
+              f"save + load(device='cpu') {rc['save_load_s']:.2f} s, equal "
+              f"{stamp}")
+        print(f"step 19 took {rc['phase_s']:.1f} s {stamp}")
+        cl = run_recon_cli(images, rc["_scene"], tmp)
+    for name, line in cl["lines"].items():
+        print(f"cli {name}: {line}")
+    print(f"step 20: five commands in parallel {cl['wall_s']:.1f} s "
+          f"(process wall clock: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in cl["process_s"].items())
+          + f"); every line and file equals in-process; image_filterer at "
+          f"{cl['min_obs']}; undistorted {RC_UNDIST_N} x {MV_H}x{MV_W}x3 "
+          f"card vs CPU max {cl['cuda_vs_cpu']:.3g} (gate "
+          f"{RC_GATES['undistort']}), {cl['undistort_ms_per_image']:.3f} "
+          f"ms per image (CUDA events, in-process) {stamp}")
+    launches = launch_counts()
+    print(f"launches during steps 19-20: {launches} {stamp}")
+    assert not any(launches.values()), launches
+    print(f"steps 19-20 took {time.perf_counter() - t_all:.1f} s {stamp}")
+    return {"rec": rc["_rec"]}
 
 
 def print_compare(what: str, cmp: dict, stamp: str) -> None:
@@ -2555,6 +3183,7 @@ def main() -> int:
     run_vocab(stamp)
     feat = run_features(stamp)
     match = run_matching(stamp)
+    recon = run_reconstruction(stamp, match)
     # last: the profiler leaves its hooks behind, which slows the host side
     # of whatever runs after it
     from cvt_tpu_torch.ops.kernels import adc_scan as T
@@ -2583,6 +3212,16 @@ def main() -> int:
           f"ms, calls): " + "; ".join(f"{name[:50]} {ms:.3f} ({n})"
                                      for name, ms, n in mp["host"])
           + f" {stamp}")
+    bp = ba_profile(recon["rec"])
+    print(f"bundle_adjust ({bp['obs']} observations, {RC_PROFILE_ITERS} LM x "
+          f"30 CG) under torch.profiler: wall {bp['wall_ms']:.2f} ms, device "
+          f"{bp['device_ms']:.2f} ms, {bp['launches']} kernel launches; top "
+          f"device operations (self ms, calls): " + "; ".join(
+              f"{name[:60]} {ms:.3f} ({n})" for name, ms, n in bp["top"])
+          + f" {stamp}")
+    print("bundle_adjust, top host operations (self ms, calls): " + "; ".join(
+        f"{name[:50]} {ms:.3f} ({n})" for name, ms, n in bp["host"])
+        + f" {stamp}")
 
     seg_err = {str(s): c["max_abs_err"] for s, c in segv.items()}
 

@@ -18,13 +18,18 @@ Commands:
   matches_importer      import explicit feature matches (and verify them)
   database_creator / database_cleaner / database_merger
                         feature-database management
+  image_undistorter     undistort an image stack through a camera model
+  image_deleter / image_filterer
+                        remove images from a saved reconstruction (or a
+                        feature database) by name / id or by observations
   serve                 sharded query server over a saved flat ADC index
 
 Flags, outputs and printed lines are `cvt_tpu.cli`'s, and the files each
 command reads or writes are interchangeable with it. Every command but
-gen_data and the three database commands (which touch no device) runs on
-the card, and takes `--device`, the port's one extra flag: `--device cpu`
-asks for the CPU; without a card and without it the command fails.
+gen_data, the three database commands, image_deleter and image_filterer
+(which touch no device) runs on the card, and takes `--device`, the
+port's one extra flag: `--device cpu` asks for the CPU; without a card
+and without it the command fails.
 Seeds give a torch.Generator where `cvt_tpu` makes a jax.random key, so
 trained models and RANSAC samples differ between the two packages for
 the same seed. `serve` runs one rank per process:
@@ -400,6 +405,83 @@ def _cmd_database_merger(args):
     print(json.dumps({"merged": args.merged_database, "n_images": n}))
 
 
+def _cmd_image_deleter(args):
+    """Delete images from a saved reconstruction or a feature database
+    (RunImageDeleter, exe/image.cc:77-154). Touches no device."""
+    from cvt_tpu_torch.match.reconstruction import Reconstruction
+
+    names = []
+    if args.image_names_path:
+        with open(args.image_names_path) as f:
+            names = [ln.strip() for ln in f if ln.strip()]
+    ids = []
+    if args.image_ids_path:
+        with open(args.image_ids_path) as f:
+            ids = [int(ln) for ln in f if ln.strip()]
+
+    if args.database:
+        from cvt_tpu_torch.io.database import FeatureDatabase
+        with FeatureDatabase(args.database) as db:
+            for n in names:
+                iid = db.image_id(n)
+                if iid is not None:
+                    ids.append(iid)
+                else:
+                    print(f"WARNING: skipping {n!r}: not in database")
+            deleted = sum(bool(db.delete_image(i)) for i in set(ids))
+        print(json.dumps({"deleted": deleted}))
+        return 0
+
+    rec = Reconstruction.load(args.input_path, device="cpu")
+    for n in names:
+        iid = rec.find_image_id(n)
+        if iid is None:
+            print(f"WARNING: skipping image_name={n}: not registered")
+        else:
+            ids.append(iid)
+    deleted = 0
+    for iid in set(ids):
+        if rec.deregister_image(iid):
+            deleted += 1
+        else:
+            print(f"WARNING: skipping image_id={iid}: not registered")
+    rec.save(args.output_path)
+    print(json.dumps({"deleted": deleted,
+                      "n_images": len(rec.images)}))
+    return 0
+
+
+def _cmd_image_filterer(args):
+    """Deregister under-observed images (RunImageFilterer,
+    exe/image.cc:155-203). Touches no device."""
+    from cvt_tpu_torch.match.reconstruction import Reconstruction
+    rec = Reconstruction.load(args.input_path, device="cpu")
+    before = len(rec.images)
+    n = rec.filter_images(
+        min_num_observations=args.min_num_observations)
+    rec.save(args.output_path)
+    print(f"Filtered {n} images from a total of {before} images")
+    return 0
+
+
+def _cmd_image_undistorter(args):
+    """Undistort an image stack through a camera model — the
+    exe/image.cc:77-407 image_undistorter."""
+    from cvt_tpu_torch.apps.undistort import undistort_images
+    images = np.load(args.images)
+    if images.dtype == np.uint8:
+        images = images.astype(np.float32) / 255.0
+    params = np.asarray([float(p) for p in args.params.split(",")],
+                        np.float32)
+    out, newp = undistort_images(images, args.model, params,
+                                 blank_pixels=args.blank_pixels,
+                                 device=args.device)
+    np.save(args.out, out.cpu().numpy())
+    print(json.dumps({"n_images": int(images.shape[0]),
+                      "model_out": "pinhole",
+                      "params_out": [float(p) for p in newp]}))
+
+
 def _print_rows(d, i) -> None:
     for row_d, row_i in zip(np.asarray(d), np.asarray(i)):
         print(json.dumps({"ids": row_i.tolist(),
@@ -608,6 +690,28 @@ def main(argv=None):
     g.add_argument("--database1", required=True)
     g.add_argument("--database2", required=True)
     g.add_argument("--merged_database", required=True)
+
+    g = parser("image_undistorter", _cmd_image_undistorter)
+    g.add_argument("--images", required=True, help=".npy [B, H, W(, C)]")
+    g.add_argument("--model", default="simple_radial")
+    g.add_argument("--params", required=True,
+                   help="comma-separated camera params")
+    g.add_argument("--blank-pixels", type=float, default=0.0)
+    g.add_argument("--out", required=True)
+
+    g = parser("image_deleter", _cmd_image_deleter, on_device=False)
+    g.add_argument("--input_path", default="",
+                   help="saved Reconstruction .npz")
+    g.add_argument("--output_path", default="")
+    g.add_argument("--database", default="",
+                   help="operate on a FeatureDatabase instead")
+    g.add_argument("--image_ids_path", default="")
+    g.add_argument("--image_names_path", default="")
+
+    g = parser("image_filterer", _cmd_image_filterer, on_device=False)
+    g.add_argument("--input_path", required=True)
+    g.add_argument("--output_path", required=True)
+    g.add_argument("--min_num_observations", type=int, default=10)
 
     g = parser("serve", _cmd_serve)
     g.add_argument("--index", required=True)

@@ -16,10 +16,12 @@ from cvt_tpu_torch.index.flat_adc import FlatADCIndex
 from cvt_tpu_torch.index.flat_sq import FlatSQIndex
 from cvt_tpu_torch.index.ivf_adc import IVFADCIndex
 from cvt_tpu_torch.index.vocab_he import VocabHEIndex
+from cvt_tpu_torch.match.bundle import BAProblem
 from cvt_tpu_torch.quant.opq import OPQ
 from cvt_tpu_torch.quant.pca import PCA
 from cvt_tpu_torch.quant.pq import ProductQuantizer
 from cvt_tpu_torch.quant.sq import ScalarQuantizer
+from cvt_tpu_torch.utils.device import resolve_device
 
 
 def pq_from_numpy(codebooks, device=None) -> ProductQuantizer:
@@ -111,3 +113,19 @@ def vocab_he_from_numpy(arrays, device=None) -> VocabHEIndex:
     prepare build its layout. Set `probes` and `bucket_cap` on the result
     where the source index used other values than the defaults."""
     return VocabHEIndex._from_arrays(arrays, device)
+
+
+def ba_problem_from_numpy(poses, points, cam_idx, pt_idx, uv, mask,
+                          device=None) -> BAProblem:
+    """A `cvt_tpu` BAProblem's arrays (poses [C, 6], points [P, 3],
+    cam_idx / pt_idx [O], uv [O, 2], mask [O]) -> the port's BAProblem:
+    float32 coordinates and int64 indices on `device`. A whole scene
+    crosses through `Reconstruction.save` / `load`, whose .npz both
+    packages share."""
+    dev = resolve_device(device)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+    return BAProblem(put(poses, torch.float32), put(points, torch.float32),
+                     put(cam_idx, torch.int64), put(pt_idx, torch.int64),
+                     put(uv, torch.float32), put(mask, torch.float32))

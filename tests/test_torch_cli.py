@@ -17,7 +17,10 @@ order). The matcher and database commands run in-process on copies of
 one FeatureDatabase (tests/test_torch_pipelines.py's scene): the same
 JSON lines and the same tables, under that file's rules (matches up to
 counted near-ties, configurations and inlier rows equal; the RANSAC
-draws differ, so the stored models are compared by kind)."""
+draws differ, so the stored models are compared by kind). image_deleter
+and image_filterer (no --device) run on a reconstruction cvt_tpu saved
+and on a database copy: the same lines, and the saved scenes equal;
+image_undistorter with --device cpu: the same line, images 1e-5."""
 
 import contextlib
 import io
@@ -63,7 +66,12 @@ MODULES = ["cvt_tpu_torch.quant.sq", "cvt_tpu_torch.quant.pca",
            "cvt_tpu_torch.apps.retrieval", "cvt_tpu_torch.utils.log",
            "cvt_tpu_torch.match.nn", "cvt_tpu_torch.match.epipolar",
            "cvt_tpu_torch.match.pose", "cvt_tpu_torch.match.two_view",
-           "cvt_tpu_torch.match.guided", "cvt_tpu_torch.match.pipelines"]
+           "cvt_tpu_torch.match.guided", "cvt_tpu_torch.match.pipelines",
+           "cvt_tpu_torch.match.gps", "cvt_tpu_torch.match.cameras",
+           "cvt_tpu_torch.match.bundle", "cvt_tpu_torch.match.lad",
+           "cvt_tpu_torch.match.reconstruction",
+           "cvt_tpu_torch.match.scene_graph_utils",
+           "cvt_tpu_torch.apps.undistort"]
 
 
 def _python(code: str, *args, stdin: str | None = None):
@@ -487,3 +495,98 @@ def test_database_commands_match_reference(match_db):
             main(["database_merger", "--database1", out, "--database2", out,
                   "--merged_database", out])
     assert merged["t"] == merged["j"]
+
+
+@pytest.fixture(scope="module")
+def recon_files(tmp_path_factory):
+    """A reconstruction cvt_tpu saved (tests/test_cli_admin.py's toy
+    scene), name and id files, and a feature database."""
+    from test_cli_admin import _make_db, _toy_reconstruction
+    tmp = tmp_path_factory.mktemp("recon")
+    rng = np.random.default_rng(7)
+    _toy_reconstruction(rng).save(str(tmp / "rec.npz"))
+    (tmp / "names.txt").write_text("im1.jpg\nmissing.jpg\nim3.jpg\n")
+    (tmp / "ids.txt").write_text("4\n17\n")
+    ids, _ = _make_db(str(tmp / "feat.db"), rng, n_images=4)
+    with FeatureDatabase(str(tmp / "feat.db")) as db:
+        db.write_matches(ids[0], ids[1], np.stack([np.arange(5)] * 2, 1))
+        db.commit()
+    return tmp
+
+
+def _same_npz(a: str, b: str) -> None:
+    with np.load(a) as za, np.load(b) as zb:
+        assert sorted(za.files) == sorted(zb.files)
+        for k in za.files:
+            np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
+
+
+@pytest.mark.parametrize("args", [("--image_names_path", "names.txt"),
+                                  ("--image_ids_path", "ids.txt")])
+def test_image_deleter_matches_reference(recon_files, args):
+    tmp = recon_files
+    lines, outs = [], []
+    for tag, main in (("j", jcli.main), ("t", tcli.main)):
+        out = str(tmp / f"del_{tag}_{args[1]}.npz")
+        lines.append(_run(main, "image_deleter", "--input_path",
+                          str(tmp / "rec.npz"), "--output_path", out,
+                          args[0], str(tmp / args[1])))
+        outs.append(out)
+    assert lines[0] == lines[1]
+    assert json.loads(lines[1][-1])["deleted"] >= 1
+    _same_npz(*outs)
+
+
+def test_image_deleter_database_matches_reference(recon_files):
+    import shutil
+    tmp = recon_files
+    lines, dbs = [], []
+    for tag, main in (("j", jcli.main), ("t", tcli.main)):
+        db = str(tmp / f"feat_{tag}.db")
+        shutil.copy(str(tmp / "feat.db"), db)
+        lines.append(_run(main, "image_deleter", "--database", db,
+                          "--image_names_path", str(tmp / "names.txt")))
+        dbs.append(db)
+    assert lines[0] == lines[1]
+    assert json.loads(lines[1][-1]) == {"deleted": 2}
+    with FeatureDatabase(dbs[0]) as a, FeatureDatabase(dbs[1]) as b:
+        assert list(a.iter_images()) == list(b.iter_images())
+        assert a.has_matches(1, 2) == b.has_matches(1, 2)
+
+
+@pytest.mark.parametrize("min_obs", ["2", "3", "10"])
+def test_image_filterer_matches_reference(recon_files, min_obs):
+    tmp = recon_files
+    lines, outs = [], []
+    for tag, main in (("j", jcli.main), ("t", tcli.main)):
+        out = str(tmp / f"filt_{tag}_{min_obs}.npz")
+        lines.append(_run(main, "image_filterer", "--input_path",
+                          str(tmp / "rec.npz"), "--output_path", out,
+                          "--min_num_observations", min_obs))
+        outs.append(out)
+    assert lines[0] == lines[1]
+    assert lines[1][-1].startswith("Filtered ")
+    _same_npz(*outs)
+
+
+@pytest.mark.parametrize("model,params,blank", [
+    ("simple_radial", "40,31.5,23.5,0.12", "0.0"),
+    ("opencv", "40,42,31.5,23.5,-0.2,0.05,0.001,-0.002", "0.5")])
+def test_image_undistorter_matches_reference(tmp_path, model, params,
+                                             blank):
+    rng = np.random.default_rng(8)
+    imgs = (rng.random((2, 48, 64, 3)) * 255).astype(np.uint8)
+    np.save(str(tmp_path / "imgs.npy"), imgs)
+    lines, outs = [], []
+    for tag, main, dev in (("j", jcli.main, ()),
+                           ("t", tcli.main, ("--device", "cpu"))):
+        out = str(tmp_path / f"und_{tag}.npy")
+        lines.append(_run(main, "image_undistorter", "--images",
+                          str(tmp_path / "imgs.npy"), "--model", model,
+                          "--params", params, "--blank-pixels", blank,
+                          "--out", out, *dev))
+        outs.append(np.load(out))
+    assert lines[0] == lines[1]
+    assert outs[1].shape == outs[0].shape == (2, 48, 64, 3)
+    assert outs[1].dtype == outs[0].dtype == np.float32
+    np.testing.assert_allclose(outs[1], outs[0], atol=1e-5)

@@ -232,3 +232,107 @@ def test_database_commands_need_no_card(no_card, small_db, tmp_path,
         {"cleared": "matches"}]
     with pytest.raises(SystemExit):
         main(["database_creator", "--database", new, "--device", "cpu"])
+
+
+def _toy_scene(device=None):
+    """Three images seeing four points (tests/test_cli_admin.py's layout:
+    images 0-2 share three points, images 3-4 one)."""
+    from cvt_tpu_torch.match import Point3D, Reconstruction
+    rng = np.random.default_rng(3)
+    rec = Reconstruction(device=device)
+    for i in range(5):
+        rec.register_image(i, f"im{i}.jpg", rng.normal(size=3) * 0.05,
+                           rng.normal(size=3), rng.normal(size=(12, 2)))
+    for j, xyz in enumerate(([0., 0., 4.], [1., 0., 4.], [0., 1., 4.])):
+        rec.points3d[j] = Point3D(np.array(xyz),
+                                  np.array([[0, j], [1, j], [2, j]]))
+    rec.points3d[3] = Point3D(np.array([1., 1., 4.]),
+                              np.array([[3, 0], [4, 0]]))
+    rec._next_pt = 4
+    return rec
+
+
+def test_image_commands_need_no_card(no_card, small_db, tmp_path, capsys):
+    """image_deleter and image_filterer touch no device: they run without
+    a card and, like cvt_tpu's, take no --device."""
+    import json
+    from cvt_tpu_torch.cli import main
+    from cvt_tpu_torch.match import Reconstruction
+    inp, out = str(tmp_path / "rec.npz"), str(tmp_path / "out.npz")
+    _toy_scene().save(inp)
+    ids = tmp_path / "ids.txt"
+    ids.write_text("4\n")
+    main(["image_deleter", "--input_path", inp, "--output_path", out,
+          "--image_ids_path", str(ids)])
+    main(["image_filterer", "--input_path", out, "--output_path", out,
+          "--min_num_observations", "2"])
+    names = tmp_path / "names.txt"
+    names.write_text("im1.jpg\n")
+    path, _ = small_db
+    main(["image_deleter", "--database", path, "--image_names_path",
+          str(names)])
+    lines = capsys.readouterr().out.splitlines()
+    assert json.loads(lines[0]) == {"deleted": 1, "n_images": 4}
+    assert lines[1] == "Filtered 1 images from a total of 4 images"
+    assert json.loads(lines[2]) == {"deleted": 1}
+    assert sorted(Reconstruction.load(out).images) == [0, 1, 2]
+    for cmd in ("image_deleter", "image_filterer"):
+        with pytest.raises(SystemExit):
+            main([cmd, "--input_path", inp, "--output_path", out,
+                  "--device", "cpu"])
+
+
+def test_image_undistorter_without_device_cpu_fails(no_card, tmp_path,
+                                                    capsys):
+    from cvt_tpu_torch.cli import main
+    np.save(str(tmp_path / "im.npy"), IMG)
+    args = ["image_undistorter", "--images", str(tmp_path / "im.npy"),
+            "--params", "40,24,20,0.1", "--out", str(tmp_path / "o.npy")]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        main(args)
+    assert capsys.readouterr().out == ""
+    main(args + ["--device", "cpu"])
+    assert np.load(str(tmp_path / "o.npy")).shape == IMG.shape
+
+
+def test_reconstruction_follows_device_rule(no_card, tmp_path):
+    """Loading, editing and saving a scene need no card; the computing
+    methods run on the card unless the scene was asked for the CPU."""
+    from cvt_tpu_torch.match import Reconstruction
+    rec = _toy_scene()
+    path = str(tmp_path / "rec.npz")
+    rec.save(path)
+    loaded = Reconstruction.load(path)
+    assert loaded.deregister_image(4) and loaded.filter_images(2) == 1
+    loaded.save(path)
+    tracks = [p.track for p in rec.points3d.values()]
+    for call in (lambda r: r.triangulate(tracks),
+                 lambda r: r.bundle_adjust(iters=1),
+                 lambda r: r.filter_points(1.0),
+                 lambda r: r.to_ba_problem()):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call(_toy_scene())
+        call(_toy_scene(device="cpu"))
+    prob = Reconstruction.load(path, device="cpu").to_ba_problem()[0]
+    assert prob.poses.device == torch.device("cpu")
+
+
+def test_undistort_and_ba_follow_device_rule(no_card):
+    from cvt_tpu_torch.apps import undistort_images, warp_image_homography
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        undistort_images(IMG, "simple_radial", [40., 24., 20., 0.1])
+    out, _ = undistort_images(IMG, "simple_radial", [40., 24., 20., 0.1],
+                              device="cpu")
+    assert out.device == torch.device("cpu")
+    out, _ = undistort_images(torch.from_numpy(IMG), "simple_radial",
+                              [40., 24., 20., 0.1])
+    assert out.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        warp_image_homography(IMG[0], np.eye(3), 8, 8)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        convert.ba_problem_from_numpy(np.zeros((1, 6)), np.zeros((1, 3)),
+                                      [0], [0], np.zeros((1, 2)), [1.0])
+    prob = convert.ba_problem_from_numpy(np.zeros((1, 6)), np.zeros((1, 3)),
+                                         [0], [0], np.zeros((1, 2)), [1.0],
+                                         device="cpu")
+    assert prob.cam_idx.dtype == torch.int64
