@@ -168,6 +168,55 @@
    19, stay 0 through step 20. A torch.profiler breakdown of one
    bundle_adjust call on step 19's scene is printed at the end.
 
+21. Logo detection and video object match at 640 x 480: 4 logos x 2
+   templates (160 x 160 crops of procedural images), LogoDetector.detect
+   over 256 procedural images (contrast halved) in batches of 16, every
+   odd one holding one template pasted under a seeded similarity (scale
+   0.8-1.2, rotation +-10 degrees). Gates: >= 0.95 of pasted images
+   flagged with the right logo, <= 2% of clean images flagged; the pack
+   saved, loaded on the CPU, the same hits on 8 images.
+   VideoObjectMatcher.match_frames over a 250-frame clip (one background,
+   seeded noise) whose frames 60-189 hold a template moving across, in
+   chunks of 50, without and with hog_threshold: >= 0.95 of those frames
+   hit, <= 2% of the others. Where cv2 can write the clip, match_video from
+   the file and from bytes (the hits within +- 2 frames of the in-memory
+   run); else one line says it did not run. Images come from
+   procedural_on_card: procedural_images' numpy draws, its sums on the
+   card (checked against the host function).
+22. Perceptual hash: 8,192 procedural 640 x 480 images through
+   resize_gray_32 and phash in batches of 512; hamming_distance [1,024 x
+   8,192] for a photometric edit (gain, offset, noise) of every 8th image.
+   Gates: the source is the first nearest hash for >= 0.95 of edits; 64
+   images hash on the card as on the CPU up to near-mean bits;
+   is_pure_image right on 64 constant and 64 textured images.
+23. decode_fastestdet + nms on FastestDet's head (352 x 352 input, stride
+   16: 22 x 22 x (5 + 80)), B 256, max_dets 64, 8 planted boxes per image:
+   keep masks equal on the CPU, every planted box kept. detect_motion_area
+   on 250 x 480 x 640 frames with a 280 x 200 picture-in-picture window of
+   moving content (box within 4 px), find_topk_boxes(3). find_pupil on
+   1,024 render_eye crops (96 x 128, seeded centres, axes, angles): >= 0.95
+   ok with the centre within 1.5 px; 16 crops through the CPU's core on
+   the same picks (centre 1e-4 px, inliers equal).
+24. detect_line_segments on 16 procedural 640 x 480 images, 128 segments
+   (ms per image, label-propagation steps); 2 images on the CPU: the
+   same step count; labels equal when both start from the CPU's angles;
+   from their own angles, pixels labelled otherwise (a pair within an
+   ulp of tau) counted with the components they touch, and at most 2
+   segments per touched component without a partner within
+   tests/_lines_tolerance.py's rectangle bounds.
+25. EmbeddingExtractor.simple_cnn(dim 128, 224) over 4,096 procedural
+   images (three tone curves as RGB) in batches of 64 (images/s, peak
+   memory; 16 on the CPU within 1e-4); the vectors in ScalarQuantizer +
+   FlatSQIndex: search_fast (the cached kernel) and bf16 search for 1,024
+   noisy copies at k 10 against exact FlatIndex ground truth (gate: recall@10
+   within 1.0 point), the kernel against its twin at this path's own
+   arguments, its time and bound. TextEmbedder.random at dim 300 with 2M
+   buckets and 200,000 words: embed_sentences over 10,000 sentences of 12
+   words (10% out of vocabulary) and embed_ids at [4,096, 32], the card
+   against the CPU within 1e-6. The three kernels' counts, zeroed before
+   step 21: adc_segmin_cached launched, the other two 0. A torch.profiler
+   list of one step-21 batch is printed at the end.
+
 Every ADC kernel-against-twin check demands segpack and tiletop bitwise
 equal, except that a row whose norm/qs lies within 1e-4 of a half-integer
 may move its key by seg (float32 summation order); such rows are counted
@@ -248,6 +297,38 @@ RC_GATES = dict(pure=0.99, lens_px=0.01, pnp_rot_deg=0.5, pnp_centre=0.1,
                 ba_px=0.8, ba_rot_deg=0.1, ba_centre=0.02,
                 cut_cost_rtol=1e-3, cut_pose=1e-3, cut_point=1e-2,
                 cam_cpu=1e-5, undistort=1e-4)
+# the features / apps slice (steps 21-25). Step 21: 4 logos x 2 templates,
+# 160 x 160 crops, 256 images (half pasted) at 640 x 480 in batches of 16,
+# the pack checked on the CPU on 8; a 250-frame clip (10 s at 25 fps) with
+# the template in frames 60-189, matched in chunks of 50
+LOGO_NAMES, LOGO_PER, LOGO_SIZE, LOGO_IMAGES, LOGO_B, LOGO_CPU = \
+    4, 2, 160, 256, 16, 8
+LOGO_BG_CONTRAST = 0.5
+LOGO_GATES = dict(recall=0.95, false=0.02)
+VIDEO_T, VIDEO_IN, VIDEO_B, VIDEO_HOG = 250, (60, 190), 50, 0.8
+VIDEO_GATES = {"in": 0.95, "out": 0.02}
+# step 22: phash over 8,192 images in batches of 512, an edit of every 8th
+PHASH_N, PHASH_B, PHASH_EVERY, PHASH_CPU, PHASH_PURE = 8192, 512, 8, 64, 64
+PHASH_GATES = dict(top1=0.95)
+# step 23: FastestDet's published head (352 x 352 input, stride 16, 5 + 80
+# COCO classes) at B 256; a 250-frame clip with a 280 x 200 PiP window
+# (x1, y1, x2, y2); 1,024 eye crops, 16 on the CPU
+DET_IN, DET_STRIDE, DET_CLASSES, DET_B, DET_MAX, DET_PLANT = \
+    352, 16, 80, 256, 64, 8
+MOTION_T, MOTION_BOX, MOTION_GATE_PX = 250, (300, 120, 580, 320), 4
+PUPIL_N, PUPIL_CPU = 1024, 16
+PUPIL_GATES = dict(good=0.95, px=1.5)
+# step 24: LSD on 16 images, 128 segments, 2 on the CPU
+LSD_N, LSD_K, LSD_CPU = 16, 128, 2
+# step 25: the simple CNN (dim 128, 224 input) over 4,096 images in batches
+# of 64; 1,024 noisy copies searched at k 10; TextEmbedder at fastText's
+# width (dim 300, 2M buckets: fastText's `bucket` default) with a 200,000
+# word vocabulary (a cut of the published 2M-word vectors)
+EMB_N, EMB_B, EMB_DIM, EMB_CPU, EMB_Q, EMB_K, EMB_NOISE = \
+    4096, 64, 128, 16, 1024, 10, 0.02
+TEXT_DIM, TEXT_BUCKETS, TEXT_VOCAB, TEXT_SENTS, TEXT_LEN = \
+    300, 2_000_000, 200_000, 10_000, 12
+TEXT_OOV, TEXT_IDS = 0.10, (4096, 32)
 # H100 SXM data sheet: dense int8 tensor-core rate, HBM3 bandwidth
 PEAK_INT8_OPS, HBM_BYTES_PER_S = 1.979e15, 3.35e12
 SASS_CLASSES = ("IMMA", "IGMMA", "IDP4A")
@@ -2934,6 +3015,771 @@ def run_reconstruction(stamp: str, match: dict) -> dict:
     return {"rec": rc["_rec"]}
 
 
+# ---------------------------------------------------------------------------
+# steps 21-25: the features / apps slice
+
+
+def procedural_on_card(n: int, h: int, w: int, seed: int,
+                       dev=None) -> torch.Tensor:
+    """io.datasets.procedural_images(n, h, w, seed=seed) built on `dev`:
+    the same numpy draws in the same order on the host (the grids and
+    rectangles, a few kB per image), the upsampling and rectangle sums
+    in torch. Equal to the host function up to float32 rounding
+    (checked at the start of step 21)."""
+    dev = dev or DEV
+    rng = np.random.default_rng(seed)
+    out = torch.zeros((n, h, w), dtype=torch.float32, device=dev)
+
+    def up(grid, hh, ww):
+        gh, gw = grid.shape[1:]
+        ys = torch.linspace(0, gh - 1, hh, dtype=torch.float32, device=dev)
+        xs = torch.linspace(0, gw - 1, ww, dtype=torch.float32, device=dev)
+        y0 = torch.clamp(ys.long(), max=gh - 2)
+        x0 = torch.clamp(xs.long(), max=gw - 2)
+        fy = (ys - y0)[None, :, None]
+        fx = (xs - x0)[None, None, :]
+        g = torch.from_numpy(grid).to(dev)
+        a = g[:, y0][:, :, x0]
+        b = g[:, y0][:, :, x0 + 1]
+        c = g[:, y0 + 1][:, :, x0]
+        d = g[:, y0 + 1][:, :, x0 + 1]
+        return ((1 - fy) * ((1 - fx) * a + fx * b)
+                + fy * ((1 - fx) * c + fx * d))
+
+    amp = 1.0
+    for o in range(6):
+        gh, gw = max(2, h >> (o + 2)), max(2, w >> (o + 2))
+        out += amp * up(rng.normal(size=(n, gh, gw)).astype(np.float32),
+                        h, w)
+        amp *= 1.35
+    yy = torch.arange(h, device=dev)[None, :, None]
+    xx = torch.arange(w, device=dev)[None, None, :]
+    for _ in range(24):
+        p = [torch.from_numpy(v.reshape(n, 1, 1)).to(dev) for v in (
+            rng.integers(0, h - 8, size=(n, 1, 1)),
+            rng.integers(0, w - 8, size=(n, 1, 1)),
+            rng.integers(4, h // 2, size=(n, 1, 1)),
+            rng.integers(4, w // 2, size=(n, 1, 1)),
+            rng.uniform(-1.2, 1.2, size=(n, 1, 1)).astype(np.float32))]
+        y0s, x0s, hs, ws, a = p
+        out += a * ((yy >= y0s) & (yy < y0s + hs) & (xx >= x0s)
+                    & (xx < x0s + ws))
+    mn = torch.amin(out, dim=(1, 2), keepdim=True)
+    mx = torch.amax(out, dim=(1, 2), keepdim=True)
+    return (out - mn) / torch.clamp_min(mx - mn, 1e-6)
+
+
+def procedural_batches(n: int, seed: int, chunk: int = 256, h: int = FEAT_H,
+                       w: int = FEAT_W, dev=None):
+    """procedural_on_card in chunks (seeds seed*1000 + chunk index, as
+    procedural_corpus): yields [chunk, h, w] on `dev`."""
+    for c in range(0, n, chunk):
+        yield procedural_on_card(min(chunk, n - c), h, w,
+                                 seed * 1000 + c // chunk, dev)
+
+
+def similarity(scale: float, angle: float, tx: float, ty: float):
+    """[2, 3] template -> image: rotate by angle, scale, then shift."""
+    ca, sa = np.cos(angle) * scale, np.sin(angle) * scale
+    return np.array([[ca, -sa, tx], [sa, ca, ty]], np.float32)
+
+
+def paste(images: torch.Tensor, templates: torch.Tensor, models) -> None:
+    """Paste templates[i] [th, tw] into images[i] under models[i] ([2, 3]
+    template -> image), bilinear, in place; pixels outside the warped
+    template keep the image."""
+    b, h, w = images.shape
+    th, tw = templates.shape[1:]
+    dev = images.device
+    inv = []
+    for m in models:
+        a = np.vstack([m, [0, 0, 1]]).astype(np.float64)
+        inv.append(np.linalg.inv(a)[:2])
+    inv = torch.tensor(np.stack(inv), dtype=torch.float32, device=dev)
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    u = (inv[:, 0, 0, None, None] * xs + inv[:, 0, 1, None, None] * ys
+         + inv[:, 0, 2, None, None])
+    v = (inv[:, 1, 0, None, None] * xs + inv[:, 1, 1, None, None] * ys
+         + inv[:, 1, 2, None, None])
+    inside = (u >= 0) & (u <= tw - 1) & (v >= 0) & (v <= th - 1)
+    grid = torch.stack([u / (tw - 1) * 2 - 1, v / (th - 1) * 2 - 1], -1)
+    smp = torch.nn.functional.grid_sample(templates[:, None], grid,
+                                          align_corners=True)[:, 0]
+    images.copy_(torch.where(inside, smp, images))
+
+
+def logo_scene(dev=None):
+    """Step 21's set-up: LOGO_NAMES x LOGO_PER templates (LOGO_SIZE crops
+    of procedural images) and LOGO_IMAGES procedural images, the pasted half
+    (every odd image) each holding one template under a seeded similarity
+    (scale 0.8-1.2, rotation +-10 degrees). The images' contrast is
+    LOGO_BG_CONTRAST of the templates' (a mark on a softer scene, as the
+    reference tests' frames at 0.2). Returns (templates {name:
+    [arrays]}, images [n, H, W] on dev, the logo name of each image or
+    None)."""
+    dev = dev or DEV
+    n_images = LOGO_IMAGES
+    rng = np.random.default_rng(SEED + 21)
+    src = procedural_on_card(LOGO_NAMES * LOGO_PER, FEAT_H, FEAT_W,
+                             SEED + 2100, dev)
+    crops = []
+    for i in range(src.shape[0]):
+        y, x = rng.integers(0, FEAT_H - LOGO_SIZE), rng.integers(
+            0, FEAT_W - LOGO_SIZE)
+        crops.append(src[i, y:y + LOGO_SIZE, x:x + LOGO_SIZE].clone())
+    names = [f"logo{j}" for j in range(LOGO_NAMES)]
+    templates = {nm: [crops[j * LOGO_PER + k].cpu().numpy()
+                      for k in range(LOGO_PER)]
+                 for j, nm in enumerate(names)}
+    images = torch.cat(list(procedural_batches(n_images, SEED + 22,
+                                               dev=dev)))
+    images = images * LOGO_BG_CONTRAST + (1 - LOGO_BG_CONTRAST) / 2
+    truth, sel, models = [None] * n_images, [], []
+    for i in range(1, n_images, 2):
+        t = int(rng.integers(LOGO_NAMES * LOGO_PER))
+        s = rng.uniform(0.8, 1.2)
+        a = np.deg2rad(rng.uniform(-10, 10))
+        half = LOGO_SIZE * s * 0.75
+        cx = rng.uniform(half, FEAT_W - half)
+        cy = rng.uniform(half, FEAT_H - half)
+        m = similarity(s, a, 0, 0)
+        c = m[:, :2] @ [LOGO_SIZE / 2, LOGO_SIZE / 2]
+        m[:, 2] = [cx - c[0], cy - c[1]]
+        truth[i] = names[t // LOGO_PER]
+        sel.append((i, t))
+        models.append(m)
+    idx = torch.tensor([i for i, _ in sel], device=dev)
+    tmpl = torch.stack([crops[t] for _, t in sel])
+    part = images[idx]
+    paste(part, tmpl, models)
+    images[idx] = part
+    return templates, images, truth
+
+
+def video_clip(template: torch.Tensor):
+    """Step 21's clip: VIDEO_T frames of one procedural background (the
+    logo scene's contrast) with seeded per-frame noise (sd 0.01); frames
+    VIDEO_IN[0]..VIDEO_IN[1]-1 hold the template moving along a straight
+    line. Returns (frames [T, H, W] on the template's device, the frames
+    that hold it)."""
+    dev = template.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    bg = procedural_on_card(1, FEAT_H, FEAT_W, SEED + 2300, dev)[0]
+    bg = bg * LOGO_BG_CONTRAST + (1 - LOGO_BG_CONTRAST) / 2
+    frames = bg[None].repeat(VIDEO_T, 1, 1)
+    frames += 0.01 * torch.randn(frames.shape, generator=g, device=dev)
+    lo, hi = VIDEO_IN
+    ids = list(range(lo, hi))
+    models = []
+    for j, _ in enumerate(ids):
+        f = j / max(len(ids) - 1, 1)
+        models.append(similarity(1.0, 0.0, 40 + f * (FEAT_W - 240),
+                                 40 + f * (FEAT_H - 240)))
+    part = frames[lo:hi]
+    paste(part, template[None].expand(len(ids), -1, -1).contiguous(), models)
+    frames[lo:hi] = part
+    return frames.clamp_(0.0, 1.0), set(ids)
+
+
+def timed(fn):
+    """(result, seconds) of fn() with the card synchronized around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_logo_video(tmp: str) -> dict:
+    """Step 21: LogoDetector over the logo scene in batches, its pack on
+    the CPU, VideoObjectMatcher over the clip with and without the HOG
+    signal, match_video from a file and from bytes where a decoder
+    exists."""
+    from cvt_tpu_torch.apps.template_match import LogoDetector
+    from cvt_tpu_torch.apps.video_match import VideoObjectMatcher
+    from cvt_tpu_torch.features.covdet import extract_sift
+    from cvt_tpu_torch.io import video as vid
+    from cvt_tpu_torch.io.datasets import procedural_images
+    res = {}
+    host = procedural_images(2, 64, 80, seed=7)
+    card = procedural_on_card(2, 64, 80, 7).cpu().numpy()
+    res["gen_err"] = float(np.abs(host - card).max())
+    assert res["gen_err"] < 1e-5, res["gen_err"]
+    templates, images, truth = logo_scene()
+    det, res["templates_s"] = timed(lambda: LogoDetector(templates,
+                                                         device=DEV))
+    hits, t_all = [], 0.0
+    for s in range(0, LOGO_IMAGES, LOGO_B):
+        out, dt = timed(lambda: det.detect(images[s:s + LOGO_B]))
+        hits += out
+        t_all += dt
+    # the split of one batch: extraction, then every template's match
+    feats, t_ext = timed(lambda: extract_sift(images[:LOGO_B], rootsift=True))
+    _, t_ver = timed(lambda: [m.match_features(feats) for ms in
+                              det.matchers.values() for m in ms])
+    pasted = [i for i, tr in enumerate(truth) if tr is not None]
+    clean = [i for i, tr in enumerate(truth) if tr is None]
+    res["logo_recall"] = np.mean([truth[i] in hits[i] for i in pasted])
+    res["logo_wrong"] = sum(any(k != truth[i] for k in hits[i])
+                            for i in pasted)
+    res["logo_false"] = np.mean([bool(hits[i]) for i in clean])
+    res["logo_inliers"] = sorted(hits[i].get(truth[i], 0) for i in pasted)
+    res["logo_s"] = t_all
+    res["logo_split_ms"] = (t_ext * 1e3, t_ver * 1e3)
+    res["logo_images_per_s"] = LOGO_IMAGES / t_all
+    assert res["logo_recall"] >= LOGO_GATES["recall"], res
+    assert res["logo_false"] <= LOGO_GATES["false"], res
+    pack = os.path.join(tmp, "logos.npz")
+    det.save(pack)
+    cpu_det = LogoDetector.load(pack, device="cpu")
+    some = list(range(LOGO_CPU))
+    cpu_hits, res["logo_cpu_s"] = timed(
+        lambda: cpu_det.detect(images[some].cpu()))
+    res["logo_cpu_equal"] = [set(h) for h in cpu_hits] == [
+        set(hits[i]) for i in some]
+    assert res["logo_cpu_equal"], (cpu_hits, [hits[i] for i in some])
+    res["_detector"], res["_batch"] = det, images[:LOGO_B]
+
+    template = torch.from_numpy(templates["logo0"][0]).to(DEV)
+    frames, inside = video_clip(template)
+    outside = set(range(VIDEO_T)) - inside
+    for name, kw in (("sift", {}), ("hog", dict(hog_threshold=VIDEO_HOG))):
+        vm = VideoObjectMatcher(template, device=DEV, **kw)
+        ids, t_all = [], 0.0
+        for s in range(0, VIDEO_T, VIDEO_B):
+            r, dt = timed(lambda: vm.match_frames(frames[s:s + VIDEO_B]))
+            ids += (r.frame_ids + s).tolist()
+            t_all += dt
+        # the split of one chunk: extraction, then verification
+        feats, ext = timed(lambda: extract_sift(
+            frames[:VIDEO_B], max_features=vm.matcher.max_features,
+            rootsift=True))
+        _, ver = timed(lambda: vm.matcher.match_features(feats))
+        got = set(ids)
+        res[f"video_{name}"] = dict(
+            hit_in=len(got & inside) / len(inside),
+            hit_out=len(got - inside) / len(outside), s=t_all,
+            split_ms=(ext * 1e3, ver * 1e3), fps=VIDEO_T / t_all,
+            hits=sorted(got))
+        assert res[f"video_{name}"]["hit_in"] >= VIDEO_GATES["in"], res
+        assert res[f"video_{name}"]["hit_out"] <= VIDEO_GATES["out"], res
+    res["video_file"] = None
+    try:
+        path = os.path.join(tmp, "clip.mp4")
+        vid.write_video(path, frames.cpu().numpy(), fps=25.0)
+    except RuntimeError as e:
+        res["video_file"] = f"did not run: {e}"
+    if res["video_file"] is None:
+        vm = VideoObjectMatcher(template, device=DEV, batch_size=VIDEO_B)
+        want = res["video_sift"]["hits"]
+        runs = {}
+        for src, data in (("file", path), ("bytes", open(path, "rb").read())):
+            r, dt = timed(lambda: vm.match_video(data))
+            runs[src] = dict(n=int(r.n_frames), hits=r.frame_ids.tolist(),
+                             s=dt)
+            got = r.frame_ids.tolist()
+            ok = (abs(len(got) - len(want)) <= 2 and got and
+                  abs(got[0] - want[0]) <= 2 and abs(got[-1] - want[-1]) <= 2)
+            assert r.n_frames == VIDEO_T and ok, (src, got, want)
+        backend = "native ffdecode" if vid._native_lib() else "cv2"
+        res["video_file"] = dict(runs, backend=backend)
+    return res
+
+
+def phase_phash() -> dict:
+    """Step 22: resize_gray_32 + phash over PHASH_N procedural images in
+    batches, hamming_distance of PHASH_EDITS photometric edits against
+    all, the card against the CPU on PHASH_CPU images, is_pure_image."""
+    import importlib
+    ph = importlib.import_module("cvt_tpu_torch.apps.phash")
+    g = torch.Generator(device=DEV).manual_seed(SEED + 22)
+    hashes, edit_hashes, src_ids = [], [], []
+    t_hash, first = 0.0, None
+    for c, batch in enumerate(procedural_batches(PHASH_N, SEED + 220,
+                                                 chunk=PHASH_B)):
+        h, dt = timed(lambda: ph.phash(ph.resize_gray_32(batch)))
+        hashes.append(h)
+        t_hash += dt
+        sel = torch.arange(0, batch.shape[0], PHASH_EVERY, device=DEV)
+        n = sel.numel()
+        gain = 0.7 + 0.6 * torch.rand((n, 1, 1), generator=g, device=DEV)
+        off = -0.15 + 0.3 * torch.rand((n, 1, 1), generator=g, device=DEV)
+        noise = 0.02 * torch.randn((n,) + batch.shape[1:], generator=g,
+                                   device=DEV)
+        edited = (batch[sel] * gain + off + noise).clamp(0, 1)
+        edit_hashes.append(ph.phash(ph.resize_gray_32(edited)))
+        src_ids.append(sel + c * PHASH_B)
+        if first is None:
+            first = batch[:PHASH_CPU].cpu()
+    db = torch.cat(hashes)
+    q = torch.cat(edit_hashes)
+    src = torch.cat(src_ids)
+    dist = ph.hamming_distance(q, db)
+    top1 = torch.argmin(dist, 1)                      # the first minimum
+    res = dict(hash_s=t_hash, images_per_s=PHASH_N / t_hash,
+               hamming_ms=cuda_median_ms(
+                   lambda: ph.hamming_distance(q, db), 10)[0],
+               shape=tuple(dist.shape),
+               top1=float((top1 == src).float().mean()),
+               src_dist_median=float(torch.median(
+                   dist[torch.arange(len(src)), src].float())),
+               other_dist_median=float(torch.median(dist.float())))
+    assert res["top1"] >= PHASH_GATES["top1"], res
+    coef = ph.dct_block(ph.resize_gray_32(first)).numpy()
+    near = np.abs(coef - coef.mean(-1, keepdims=True)) < 1e-5
+    h_cpu = ph.phash(ph.resize_gray_32(first)).numpy()
+    differ = np.unpackbits((h_cpu ^ db[:PHASH_CPU].cpu().numpy()).view(
+        np.uint8), bitorder="little").reshape(near.shape).astype(bool)
+    res["cpu_bits_differ"] = int(differ.sum())
+    res["cpu_near_mean_bits"] = int(near.sum())
+    assert not np.any(differ & ~near), "phash: card differs from CPU"
+    const = torch.rand((PHASH_PURE, 1, 1), generator=g, device=DEV) * 255
+    const = const.expand(-1, FEAT_H, FEAT_W)
+    textured = next(procedural_batches(PHASH_PURE, SEED + 221)) * 255
+    pure = ph.is_pure_image(torch.cat([const, textured]))
+    res["pure_right"] = int(pure[:PHASH_PURE].sum()
+                            + (~pure[PHASH_PURE:]).sum())
+    assert res["pure_right"] == 2 * PHASH_PURE, res
+    return res
+
+
+def planted_head():
+    """Step 23's FastestDet head [DET_B, 22, 22, 85]: background logits
+    (objectness ~ N(-4, 1)), DET_PLANT boxes per image at cells at least
+    5 apart, each of its own class with objectness 5 and class logit 8."""
+    rng = np.random.default_rng(SEED + 230)
+    hw = DET_IN // DET_STRIDE
+    head = rng.normal(size=(DET_B, hw, hw, 5 + DET_CLASSES)).astype(
+        np.float32)
+    head[..., 0] -= 4.0
+    head[..., 3:5] = -1.5                     # boxes ~0.18 of the input
+    planted = []
+    cells = [(y, x) for y in range(1, hw, 5) for x in range(1, hw, 5)]
+    for b in range(DET_B):
+        pick = rng.choice(len(cells), DET_PLANT, replace=False)
+        cls = rng.choice(DET_CLASSES, DET_PLANT, replace=False)
+        for p, c in zip(pick, cls):
+            y, x = cells[p]
+            head[b, y, x, 0] = 5.0
+            head[b, y, x, 5 + c] = 8.0
+            planted.append((b, y * hw + x))
+    return head, planted
+
+
+def phase_detect_motion_pupil() -> dict:
+    """Step 23: decode + NMS at FastestDet's head shape, the motion area
+    of a picture-in-picture clip, find_pupil on render_eye crops."""
+    from cvt_tpu_torch.apps import detect, motion_area, pupil
+    from cvt_tpu_torch.ops.topk import top_k_largest
+    res = {}
+    head, planted = planted_head()
+    head_dev = torch.from_numpy(head).to(DEV)
+    run = lambda h: detect.nms(detect.decode_fastestdet(  # noqa: E731
+        h, max_dets=DET_MAX))
+    out = run(head_dev)
+    res["det_ms"] = cuda_median_ms(lambda: run(head_dev), 10)[0]
+    cpu = run(torch.from_numpy(head))
+    res["det_keep_equal"] = bool(torch.equal(out.valid.cpu(), cpu.valid))
+    assert res["det_keep_equal"]
+    assert bool(torch.allclose(out.scores.cpu(), cpu.scores, atol=1e-6))
+    # each planted cell must sit in a kept slot
+    hw = DET_IN // DET_STRIDE
+    score = torch.sigmoid(head_dev[..., 0]) * torch.softmax(
+        head_dev[..., 5:], -1).amax(-1)
+    _, topi = top_k_largest(torch.sqrt(score).reshape(DET_B, -1), DET_MAX)
+    kept = {(b, int(topi[b, k])) for b, k in
+            torch.nonzero(out.valid).tolist()}
+    res["det_planted_kept"] = sum(p in kept for p in planted)
+    res["det_planted"] = len(planted)
+    res["det_kept"] = int(out.valid.sum())
+    res["det_decoded"] = int(detect.decode_fastestdet(
+        head_dev, max_dets=DET_MAX).valid.sum())
+    assert res["det_planted_kept"] == len(planted), res
+    assert hw == 22
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 231)
+    bg = procedural_on_card(1, FEAT_H, FEAT_W, SEED + 2310)[0]
+    big = procedural_on_card(1, FEAT_H * 2, FEAT_W * 2, SEED + 2311)[0]
+    frames = bg[None].repeat(MOTION_T, 1, 1)
+    frames += 0.01 * torch.randn(frames.shape, generator=g, device=DEV)
+    x1, y1 = MOTION_BOX[:2]
+    ph_, pw = MOTION_BOX[3] - y1, MOTION_BOX[2] - x1
+    for t_ in range(MOTION_T):
+        oy, ox = (3 * t_) % (FEAT_H * 2 - ph_), (2 * t_) % (FEAT_W * 2 - pw)
+        frames[t_, y1:y1 + ph_, x1:x1 + pw] = big[oy:oy + ph_, ox:ox + pw]
+    frames.clamp_(0, 1)
+    mb, dt = timed(lambda: motion_area.detect_motion_area(frames))
+    res["motion_box"] = mb.box.tolist()
+    res["motion_cov"] = float(mb.coverage)
+    res["motion_ms"] = dt * 1e3
+    res["motion_err"] = int(np.abs(np.array(res["motion_box"])
+                                   - MOTION_BOX).max())
+    assert res["motion_err"] <= MOTION_GATE_PX, res
+    res["motion_topk"], _ = motion_area.find_topk_boxes(frames, 3)
+
+    rng = np.random.default_rng(SEED + 232)
+    truth = np.stack([rng.uniform(45, 83, PUPIL_N), rng.uniform(38, 58,
+                                                                PUPIL_N)], 1)
+    eyes = np.stack([pupil.render_eye(
+        cx=float(cx), cy=float(cy), a=float(rng.uniform(9, 15)),
+        b=float(rng.uniform(7, 11)), angle=float(rng.uniform(-1.2, 1.2)))
+        for cx, cy in truth])
+    eyes_dev = torch.from_numpy(eyes).to(DEV)
+    gen = torch.Generator().manual_seed(SEED)
+    pr, dt = timed(lambda: pupil.find_pupil(gen, eyes_dev))
+    err = np.linalg.norm(pr.center.cpu().numpy() - truth, axis=1)
+    good = pr.ok.cpu().numpy() & (err <= PUPIL_GATES["px"])
+    res.update(pupil_ms=dt * 1e3, pupil_good=float(good.mean()),
+               pupil_err_median=float(np.median(err)),
+               pupil_ok=float(pr.ok.float().mean()))
+    assert res["pupil_good"] >= PUPIL_GATES["good"], res
+    ed = pupil.pupil_edges(eyes_dev[:PUPIL_CPU])
+    ec = pupil.pupil_edges(eyes[:PUPIL_CPU], device="cpu")
+    picks = pupil.sample_edge_picks(torch.Generator().manual_seed(1),
+                                    ec.valid, 64)
+    rg, rc = pupil.fit_pupil(ed, picks.to(DEV)), pupil.fit_pupil(ec, picks)
+    res["pupil_cpu_centre"] = float(np.abs(
+        rg.center.cpu().numpy() - rc.center.numpy()).max())
+    res["pupil_cpu_inliers_equal"] = bool(torch.equal(rg.n_inliers.cpu(),
+                                                      rc.n_inliers))
+    res["pupil_cpu_edges_equal"] = bool(torch.equal(ed.valid.cpu(),
+                                                    ec.valid))
+    assert res["pupil_cpu_edges_equal"] and res["pupil_cpu_inliers_equal"]
+    assert res["pupil_cpu_centre"] <= 1e-4, res
+    return res
+
+
+def lines_tolerance():
+    """tests/_lines_tolerance.py (numpy only): the line detector's
+    rectangle tolerances, shared with the CPU parity tests."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "_lines_tolerance.py")
+    spec = importlib.util.spec_from_file_location("_lines_tolerance", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_lines() -> dict:
+    """Step 24: detect_line_segments on LSD_N procedural images at
+    640 x 480, 128 segments; LSD_CPU of them on the CPU."""
+    from cvt_tpu_torch.features import lines
+    x = next(procedural_batches(LSD_N, SEED + 240))
+    lines.detect_line_segments(x[:2], max_segments=LSD_K)            # warm
+    out, dt = timed(lambda: lines.detect_line_segments(x, max_segments=LSD_K))
+    res = dict(ms_per_image=dt * 1e3 / LSD_N,
+               steps=lines.last_propagation_steps,
+               valid_mean=float(out.valid.sum(1).float().mean()))
+    xc = x[:LSD_CPU].cpu()
+    cpu, res["cpu_s"] = timed(lambda: lines.detect_line_segments(
+        xc, max_segments=LSD_K))
+    res["cpu_steps"] = lines.last_propagation_steps
+    one = lines.detect_line_segments(x[:LSD_CPU], max_segments=LSD_K)
+    res["card_steps_2"] = lines.last_propagation_steps
+    assert res["cpu_steps"] == res["card_steps_2"], res
+    # arctan2 differs by an ulp between the card and the CPU: a pixel pair
+    # whose angle difference lies that close to tau may join on one only.
+    # Such near-tie pixels are counted; the components they touch may
+    # give other rectangles, or move in the count ranking (so segments are
+    # matched as sets), and nothing else may differ
+    tau = float(np.float32(np.deg2rad(22.5)))
+    ang, mag = lines._level_lines(xc)
+    lab_c, _ = lines._components(ang, mag > 0.02, tau)
+    lab_g, _ = lines._components(ang.to(DEV), mag.to(DEV) > 0.02, tau)
+    ang_g, mag_g = lines._level_lines(x[:LSD_CPU])
+    lab_own, _ = lines._components(ang_g, mag_g > 0.02, tau)
+    lab_g, lab_own = lab_g.cpu(), lab_own.cpu()
+    assert torch.equal(lab_g, lab_c), "labels: card differs on equal angles"
+    differ = lab_own != lab_c
+    res["angle_max_diff"] = float((ang_g.cpu() - ang).abs().max())
+    res["label_pixels_differ"] = int(differ.sum())
+    res["components_touched"] = len(
+        set(lab_c[differ].tolist()) | set(lab_own[differ].tolist()))
+    tol = lines_tolerance()
+    res["unmatched"] = sum(
+        tol.unmatched_segments(*(tol._numpy(type(s)(*(a[b] for a in s)))
+                                 for s in (one, cpu)))
+        for b in range(LSD_CPU))
+    assert res["unmatched"] <= 2 * res["components_touched"], res
+    assert bool(torch.isfinite(out.nfa).all()) and res["valid_mean"] > 10
+    return res
+
+
+def rgb(gray: torch.Tensor) -> torch.Tensor:
+    """[B, H, W] gray in [0, 1] -> [B, H, W, 3]: three tone curves."""
+    return torch.stack([gray, gray ** 1.5, 1.0 - gray], -1)
+
+
+def phase_embeddings() -> dict:
+    """Step 25: the simple CNN over EMB_N procedural images, its vectors
+    in ScalarQuantizer + FlatSQIndex (search_fast and bf16 search against
+    exact FlatIndex ground truth), the cached kernel against its twin at
+    this path's arguments; then TextEmbedder at fastText's width."""
+    from cvt_tpu_torch.features.embedding import EmbeddingExtractor
+    from cvt_tpu_torch.features.text import TextEmbedder, embed_ids
+    from cvt_tpu_torch.index import FlatIndex, FlatSQIndex
+    from cvt_tpu_torch.ops.kernels import adc_scan as T
+    from cvt_tpu_torch.ops.linalg import l2_normalize
+    from cvt_tpu_torch.quant import ScalarQuantizer
+    from cvt_tpu_torch.utils import recall_at_k
+    res = {}
+    ext = EmbeddingExtractor.simple_cnn(dim=EMB_DIM, input_size=224,
+                                        device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    embs, t_cnn, first = [], 0.0, None
+    for batch in procedural_batches(EMB_N, SEED + 250, chunk=512):
+        x = rgb(batch)
+        e, dt = timed(lambda: ext.compute(x, batch_size=EMB_B))
+        embs.append(e)
+        t_cnn += dt
+        if first is None:
+            first = x[:EMB_CPU].cpu()
+    emb = torch.cat(embs)
+    res.update(images_per_s=EMB_N / t_cnn, cnn_s=t_cnn,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    norms = torch.linalg.vector_norm(emb, dim=1)
+    assert float((norms - 1).abs().max()) <= 1e-4
+    cpu_ext = EmbeddingExtractor._from_weights(
+        [w.permute(2, 3, 1, 0).cpu() for w in ext.fn.convs],
+        ext.fn.head.cpu(), device="cpu")
+    e_cpu = cpu_ext.compute(first, batch_size=EMB_CPU)
+    res["cpu_err"] = float((emb[:EMB_CPU].cpu() - e_cpu).abs().max())
+    assert res["cpu_err"] <= 1e-4 * float(e_cpu.abs().max()), res
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 251)
+    src = torch.randint(0, EMB_N, (EMB_Q,), generator=g, device=DEV)
+    q = l2_normalize(emb[src] + EMB_NOISE * torch.randn(
+        (EMB_Q, EMB_DIM), generator=g, device=DEV))
+    exact = FlatIndex(EMB_DIM, "l2", device=DEV)
+    exact.add(emb)
+    gt = exact.search(q, 1)[1][:, 0].cpu()
+    sq = ScalarQuantizer.train(emb)
+    idx = FlatSQIndex(sq, mode="bf16")
+    idx.add(emb)
+    T.adc_segmin_cached.launches = 0
+    d_f, i_f = idx.search_fast(q, EMB_K)
+    torch.cuda.synchronize()
+    res["launches"] = T.adc_segmin_cached.launches
+    d_b, i_b = idx.search(q, EMB_K)
+    for name, (d, i) in (("fast", (d_f, i_f)), ("bf16", (d_b, i_b))):
+        assert int(i.min()) >= 0 and int(i.max()) < EMB_N, name
+        assert bool(torch.isfinite(d).all()), name
+        res[f"recall_at_10_{name}"] = recall_at_k(i, gt, k=10)
+        res[f"recall_at_1_{name}"] = recall_at_k(i, gt, k=1)
+    res["parity_pt"] = 100 * (res["recall_at_10_bf16"]
+                              - res["recall_at_10_fast"])
+    assert res["launches"] > 0, "the cached kernel never launched"
+    assert abs(res["parity_pt"]) <= 1.0, res
+    args = sq_kernel_args(idx, q)
+    res["cmp"] = compare_kernel_to_twin(
+        T.adc_segmin_cached, T.adc_segmin_cached_plain, args,
+        args[3][:, 0], args[1], args[-1])
+    res["fast_ms"] = cuda_median_ms(lambda: idx.search_fast(q, EMB_K), 10)[0]
+    res["bf16_ms"] = cuda_median_ms(lambda: idx.search(q, EMB_K), 10)[0]
+    res["kernel_ms"] = cuda_median_ms(lambda: T.adc_segmin_cached(*args),
+                                      20)[0]
+    res["plain_ms"] = cuda_median_ms(
+        lambda: T.adc_segmin_cached_plain(*args), 3)[0]
+    res["bound"] = share(res["kernel_ms"], adc_bound(args, cached=True))
+    res["npad"], res["tile"] = args[2].shape[1], args[-1]
+
+    rng = np.random.default_rng(SEED + 252)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+
+    def words(n):
+        lens = rng.integers(3, 11, n)
+        chars = letters[rng.integers(0, 26, int(lens.sum()))]
+        cut = np.cumsum(lens)[:-1]
+        return ["".join(c) for c in np.split(chars, cut)]
+    vocab = list(dict.fromkeys(words(TEXT_VOCAB * 2)))[:TEXT_VOCAB]
+    known = set(vocab)
+    oov = [w + "q" for w in words(TEXT_SENTS) if w + "q" not in known]
+    te, res["text_build_s"] = timed(lambda: TextEmbedder.random(
+        vocab, dim=TEXT_DIM, n_buckets=TEXT_BUCKETS, seed=SEED,
+        device=DEV))
+    toks = rng.integers(0, TEXT_VOCAB, (TEXT_SENTS, TEXT_LEN))
+    is_oov = rng.random((TEXT_SENTS, TEXT_LEN)) < TEXT_OOV
+    sents = [" ".join(oov[j % len(oov)] if is_oov[i, j] else vocab[t]
+                      for j, t in enumerate(row))
+             for i, row in enumerate(toks)]
+    s_emb, res["sentences_s"] = timed(lambda: te.embed_sentences(sents))
+    cpu_te = TextEmbedder(te.vocab, te.vectors.cpu(), te.ngrams.cpu(),
+                          device="cpu")
+    res["text_cpu_err"] = float((s_emb.cpu() - cpu_te.embed_sentences(
+        sents)).abs().max())
+    ids = torch.randint(0, TEXT_VOCAB, TEXT_IDS, generator=g, device=DEV)
+    mask = (torch.rand(TEXT_IDS, generator=g, device=DEV) < 0.8).float()
+    out_ids = embed_ids(te.vectors, ids, mask)
+    res["ids_ms"] = cuda_median_ms(lambda: embed_ids(te.vectors, ids, mask),
+                                   10)[0]
+    res["ids_cpu_err"] = float((out_ids.cpu() - embed_ids(
+        cpu_te.vectors, ids.cpu(), mask.cpu())).abs().max())
+    res["oov_share"] = float(is_oov.mean())
+    assert res["text_cpu_err"] <= 1e-6 and res["ids_cpu_err"] <= 1e-6, res
+    return res
+
+
+def apps_profile(det, batch: torch.Tensor, top: int = 10) -> dict:
+    """torch.profiler over one step-21 batch (LogoDetector.detect on
+    LOGO_B images): top device and host operations by self time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    det.detect(batch)                                         # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        det.detect(batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in ev if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total), key=lambda o: -o[1])
+    if not ops:
+        ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in ev if e.self_device_time_total > 0),
+                     key=lambda o: -o[1])
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in ev if e.self_cpu_time_total > 0),
+                  key=lambda o: -o[1])
+    return {"wall_ms": wall, "device_ms": sum(o[1] for o in ops),
+            "top": ops[:top], "host": host[:top]}
+
+
+def run_apps(stamp: str) -> dict:
+    """Steps 21-25 with their prints; the three kernels' counts are zeroed
+    before step 21 and read after step 25. Returns the step-21 batch for
+    the profile and step 25's kernel figures for the kernels line."""
+    import tempfile
+    t_all = time.perf_counter()
+    zero_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        lv, dt = timed(lambda: phase_logo_video(tmp))
+    print(f"step 21 data: procedural_on_card vs procedural_images max "
+          f"{lv['gen_err']:.3g}; {LOGO_NAMES} logos x {LOGO_PER} templates "
+          f"({LOGO_SIZE} x {LOGO_SIZE}) in {lv['templates_s']:.2f} s {stamp}")
+    print(f"LogoDetector.detect over {LOGO_IMAGES} images {FEAT_W} x "
+          f"{FEAT_H} in batches of {LOGO_B}: pasted flagged with the right "
+          f"logo {lv['logo_recall']:.4f} (gate {LOGO_GATES['recall']}), "
+          f"with a wrong logo {lv['logo_wrong']}, clean flagged "
+          f"{lv['logo_false']:.4f} (gate {LOGO_GATES['false']}); inliers "
+          f"min {lv['logo_inliers'][0]} / median "
+          f"{np.median(lv['logo_inliers']):.0f}; {lv['logo_s']:.2f} s, "
+          f"{lv['logo_images_per_s']:.1f} images/s; one batch split: "
+          f"extract_sift {lv['logo_split_ms'][0]:.1f} ms, the "
+          f"{LOGO_NAMES * LOGO_PER} templates' match_features "
+          f"{lv['logo_split_ms'][1]:.1f} ms; pack loaded on "
+          f"the CPU: the same hits on {LOGO_CPU} images "
+          f"({lv['logo_cpu_s']:.1f} s) {stamp}")
+    for name in ("sift", "hog"):
+        v = lv[f"video_{name}"]
+        print(f"VideoObjectMatcher.match_frames ({name}"
+              + (f", hog_threshold {VIDEO_HOG}" if name == "hog" else "")
+              + f") over {VIDEO_T} frames in chunks of {VIDEO_B}: frames "
+              f"{VIDEO_IN[0]}-{VIDEO_IN[1] - 1} hit {v['hit_in']:.4f} (gate "
+              f"{VIDEO_GATES['in']}), others {v['hit_out']:.4f} (gate "
+              f"{VIDEO_GATES['out']}); {v['fps']:.1f} frames/s; one chunk "
+              f"split: extract_sift {v['split_ms'][0]:.1f} ms, "
+              f"match_features {v['split_ms'][1]:.1f} ms {stamp}")
+    vf = lv["video_file"]
+    if isinstance(vf, str):
+        print(f"match_video from a file and from bytes {vf} {stamp}")
+    else:
+        print(f"match_video ({vf['backend']}) from a file: "
+              f"{len(vf['file']['hits'])} hits in {vf['file']['s']:.2f} s, "
+              f"from bytes: {len(vf['bytes']['hits'])} hits in "
+              f"{vf['bytes']['s']:.2f} s; the in-memory frames' hits +- 2 "
+              f"{stamp}")
+    print(f"step 21 took {dt:.1f} s {stamp}")
+
+    ph, dt = timed(phase_phash)
+    print(f"phash over {PHASH_N} procedural images {FEAT_W} x {FEAT_H} in "
+          f"batches of {PHASH_B}: resize_gray_32 + phash {ph['hash_s']:.3f} "
+          f"s, {ph['images_per_s']:.0f} images/s; hamming_distance "
+          f"{ph['shape'][0]} x {ph['shape'][1]} {ph['hamming_ms']:.3f} ms "
+          f"(median of 10); "
+          f"source top-1 for {ph['top1']:.4f} of photometric edits (gate "
+          f"{PHASH_GATES['top1']}), Hamming to the source median "
+          f"{ph['src_dist_median']:.0f}, to all median "
+          f"{ph['other_dist_median']:.0f}; card vs CPU on {PHASH_CPU} images:"
+          f" {ph['cpu_bits_differ']} bits differ, {ph['cpu_near_mean_bits']}"
+          f" near-mean bits; is_pure_image {ph['pure_right']} of "
+          f"{2 * PHASH_PURE} right; step 22 took {dt:.1f} s {stamp}")
+
+    dm, dt = timed(phase_detect_motion_pupil)
+    print(f"decode_fastestdet + nms at {DET_IN} x {DET_IN} / {DET_STRIDE} "
+          f"(22 x 22 x {5 + DET_CLASSES}), B {DET_B}, max_dets {DET_MAX}: "
+          f"{dm['det_ms']:.3f} ms (median, CUDA events); decoded "
+          f"{dm['det_decoded']}, kept {dm['det_kept']}; planted kept "
+          f"{dm['det_planted_kept']} of {dm['det_planted']}; keep masks "
+          f"equal on the CPU {dm['det_keep_equal']} {stamp}")
+    print(f"detect_motion_area on {MOTION_T} x {FEAT_H} x {FEAT_W}: box "
+          f"{dm['motion_box']} (true {list(MOTION_BOX)}, max error "
+          f"{dm['motion_err']} px, gate {MOTION_GATE_PX}), coverage "
+          f"{dm['motion_cov']:.4f}, {dm['motion_ms']:.2f} ms; "
+          f"find_topk_boxes(3) {dm['motion_topk']} {stamp}")
+    print(f"find_pupil on {PUPIL_N} render_eye crops 96 x 128: ok "
+          f"{dm['pupil_ok']:.4f}, ok and centre <= {PUPIL_GATES['px']} px "
+          f"{dm['pupil_good']:.4f} (gate {PUPIL_GATES['good']}), centre "
+          f"error median {dm['pupil_err_median']:.3f} px, "
+          f"{dm['pupil_ms']:.1f} ms; {PUPIL_CPU} crops on the CPU core "
+          f"with the same picks: centre max {dm['pupil_cpu_centre']:.3g} px"
+          f", inliers equal {dm['pupil_cpu_inliers_equal']}; step 23 took "
+          f"{dt:.1f} s {stamp}")
+
+    ln, dt = timed(phase_lines)
+    print(f"detect_line_segments on {LSD_N} procedural {FEAT_W} x {FEAT_H}"
+          f", {LSD_K} segments: {ln['ms_per_image']:.2f} ms per image, "
+          f"label propagation {ln['steps']} steps, {ln['valid_mean']:.1f} "
+          f"valid segments per image; {LSD_CPU} images on the CPU "
+          f"({ln['cpu_s']:.1f} s, {ln['cpu_steps']} steps): angles max "
+          f"{ln['angle_max_diff']:.3g} apart, labels equal on equal "
+          f"angles, {ln['label_pixels_differ']} pixels labelled otherwise "
+          f"(near ties at tau) in {ln['components_touched']} components, "
+          f"{ln['unmatched']} segments without a partner within the "
+          f"rectangle tolerances (gate: <= 2 per touched component); step "
+          f"24 took {dt:.1f} s {stamp}")
+
+    em, dt = timed(phase_embeddings)
+    print(f"EmbeddingExtractor.simple_cnn(dim {EMB_DIM}, 224) over {EMB_N} "
+          f"procedural {FEAT_W} x {FEAT_H} x 3 in batches of {EMB_B}: "
+          f"{em['images_per_s']:.1f} images/s, peak memory allocated "
+          f"{em['peak_gb']:.3f} GB; card vs CPU on {EMB_CPU} images max "
+          f"{em['cpu_err']:.3g} {stamp}")
+    print(f"embeddings -> ScalarQuantizer + FlatSQIndex ({EMB_N} x "
+          f"{EMB_DIM}), {EMB_Q} noisy copies, k {EMB_K}: recall@10 "
+          f"search_fast {em['recall_at_10_fast']:.4f}, bf16 "
+          f"{em['recall_at_10_bf16']:.4f} (parity {em['parity_pt']:.2f} pt,"
+          f" limit 1.0); search_fast {em['fast_ms']:.3f} ms, bf16 "
+          f"{em['bf16_ms']:.3f} ms; adc_segmin_cached launched "
+          f"{em['launches']} time(s) by the search {stamp}")
+    print_compare(f"embeddings path's arguments, Npad={em['npad']} "
+                  f"B={EMB_Q} tile {em['tile']}",
+                  {"adc_segmin_cached": em["cmp"]}, stamp)
+    print(f"adc_segmin_cached at the embeddings path: kernel "
+          f"{em['kernel_ms']:.4f} ms, twin {em['plain_ms']:.3f} ms {stamp}")
+    print_bound("adc_segmin_cached", f"the embeddings path (Npad "
+                f"{em['npad']}, Bpad {EMB_Q}, tile {em['tile']})",
+                em["bound"], stamp)
+    print(f"TextEmbedder dim {TEXT_DIM}, {TEXT_BUCKETS} buckets, vocabulary "
+          f"{TEXT_VOCAB}: built in {em['text_build_s']:.1f} s; "
+          f"embed_sentences over {TEXT_SENTS} x {TEXT_LEN} words "
+          f"({em['oov_share']:.3f} OOV) {em['sentences_s']:.2f} s, card vs "
+          f"CPU max {em['text_cpu_err']:.3g}; embed_ids {TEXT_IDS} "
+          f"{em['ids_ms']:.3f} ms, card vs CPU max {em['ids_cpu_err']:.3g}; "
+          f"step 25 took {dt:.1f} s {stamp}")
+    launches = launch_counts()
+    print(f"launches during steps 21-25: {launches} {stamp}")
+    assert launches["adc_segmin"] == 0 and launches["ivf_page"] == 0
+    assert launches["adc_segmin_cached"] >= em["launches"] > 0, launches
+    print(f"steps 21-25 took {time.perf_counter() - t_all:.1f} s {stamp}")
+    return {"detector": lv["_detector"], "batch": lv["_batch"], "emb": em}
+
+
 def print_compare(what: str, cmp: dict, stamp: str) -> None:
     for name, c in cmp.items():
         print(f"kernel vs twin, {what}: {name} max|diff| {c['max_abs_err']}"
@@ -3184,6 +4030,7 @@ def main() -> int:
     feat = run_features(stamp)
     match = run_matching(stamp)
     recon = run_reconstruction(stamp, match)
+    apps = run_apps(stamp)
     # last: the profiler leaves its hooks behind, which slows the host side
     # of whatever runs after it
     from cvt_tpu_torch.ops.kernels import adc_scan as T
@@ -3222,6 +4069,16 @@ def main() -> int:
     print("bundle_adjust, top host operations (self ms, calls): " + "; ".join(
         f"{name[:50]} {ms:.3f} ({n})" for name, ms, n in bp["host"])
         + f" {stamp}")
+    ap = apps_profile(apps["detector"], apps["batch"])
+    print(f"LogoDetector.detect ({LOGO_B} images, {LOGO_NAMES * LOGO_PER} "
+          f"templates) under torch.profiler: wall {ap['wall_ms']:.2f} ms, "
+          f"device {ap['device_ms']:.2f} ms; top device operations (self ms,"
+          f" calls): " + "; ".join(f"{name[:60]} {ms:.3f} ({n})"
+                                  for name, ms, n in ap["top"]) + f" {stamp}")
+    print("LogoDetector.detect, top host operations (self ms, calls): "
+          + "; ".join(f"{name[:50]} {ms:.3f} ({n})"
+                      for name, ms, n in ap["host"]) + f" {stamp}")
+    em = apps["emb"]
 
     seg_err = {str(s): c["max_abs_err"] for s, c in segv.items()}
 
@@ -3259,15 +4116,19 @@ def main() -> int:
               split_ms=split["adc_segmin"], sass=sass_of("adc_segmin_kernel")),
         entry("adc_segmin_cached", KERNEL_SRC,
               "cvt_tpu/ops/pallas/adc_scan.py:448",
-              res["launches"]["adc_segmin_cached"] + sq["launches"],
+              res["launches"]["adc_segmin_cached"] + sq["launches"]
+              + em["launches"],
               max(cmp["adc_segmin_cached"]["max_abs_err"],
-                  sq["cmp"]["max_abs_err"]),
+                  sq["cmp"]["max_abs_err"], em["cmp"]["max_abs_err"]),
               tm["adc_segmin_cached_ms"], tm["adc_segmin_cached_plain_ms"],
               flat_b["adc_segmin_cached"],
               launches_by_path={"flat": res["launches"]["adc_segmin_cached"],
-                                "sq": sq["launches"]},
+                                "sq": sq["launches"],
+                                "embeddings": em["launches"]},
               by_path={"flat": path(flat_b["adc_segmin_cached"]),
-                       "sq": path(sq["bound"])},
+                       "sq": path(sq["bound"]),
+                       "embeddings": dict(path(em["bound"]),
+                                          plain_ms=em["plain_ms"])},
               split_ms=split["adc_segmin_cached"],
               sass=sass_of("adc_segmin_cached_kernel")),
         entry("ivf_page", IVF_SRC, "cvt_tpu/ops/pallas/ivf_scan.py:82",

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cvt_tpu_torch.features.embedding import EmbeddingExtractor
 from cvt_tpu_torch.index.flat_adc import FlatADCIndex
 from cvt_tpu_torch.index.flat_sq import FlatSQIndex
 from cvt_tpu_torch.index.ivf_adc import IVFADCIndex
@@ -129,3 +130,13 @@ def ba_problem_from_numpy(poses, points, cam_idx, pt_idx, uv, mask,
     return BAProblem(put(poses, torch.float32), put(points, torch.float32),
                      put(cam_idx, torch.int64), put(pt_idx, torch.int64),
                      put(uv, torch.float32), put(mask, torch.float32))
+
+
+def embedding_from_numpy(conv_ws, head, input_size: int = 224,
+                         device=None) -> EmbeddingExtractor:
+    """`cvt_tpu`'s simple encoder (`features.embedding._init_simple_cnn`:
+    a list of HWIO conv weights [3, 3, Cin, Cout] and a head [C, dim]) ->
+    the port's EmbeddingExtractor with the same weights on `device`."""
+    return EmbeddingExtractor._from_weights(
+        [np.array(w, np.float32) for w in conv_ws],
+        np.array(head, np.float32), input_size=input_size, device=device)

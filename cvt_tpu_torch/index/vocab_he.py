@@ -14,9 +14,8 @@ verify (visual_index.h:376-501).
 What differs from `cvt_tpu`:
   * a 64-bit signature is one int64 word: bits 0-31 are `cvt_tpu`'s
     uint32 word 0, bits 32-63 its word 1 (`save`, `load` and
-    `convert.vocab_he_from_numpy` convert to and from [..., 2] uint32).
-    Bits are counted with a 256-entry byte table, masking after every
-    shift (torch has no popcount);
+    `convert.vocab_he_from_numpy` convert to and from [..., 2] uint32),
+    counted by `ops/bits.py`'s byte table (torch has no popcount);
   * image scores are float32 scatter-adds (`index_add_`); on the card
     their summation order is the atomics', not XLA's, so scores agree to
     a tolerance and ids where neighbouring scores are further apart;
@@ -39,6 +38,8 @@ from cvt_tpu_torch.match.vote_verify import vote_and_verify
 from cvt_tpu_torch.ops.kmeans import (hierarchical_assign,
                                       hierarchical_kmeans, kmeans,
                                       kmeans_assign, kmeans_assign_blocked)
+from cvt_tpu_torch.ops.bits import (_hamming, _pack_bits, _popcount,  # noqa: F401
+                                    sigs_from_u32, sigs_to_u32)
 from cvt_tpu_torch.ops.topk import top_k_largest
 from cvt_tpu_torch.utils.device import resolve_device
 
@@ -46,52 +47,11 @@ HE_BITS = 64
 HE_MAX_DIST = 24       # visual_index.h max Hamming distance
 HE_SIGMA = 16.0        # utils.h HammingDistWeightFunctor sigma
 
-_BYTE_BITS = torch.tensor([bin(i).count("1") for i in range(256)],
-                          dtype=torch.int32)
-# bit i of a signature; bit 63 is the int64 sign bit
-_BIT_WEIGHTS = torch.tensor([1 << i for i in range(63)] + [-(1 << 63)],
-                            dtype=torch.int64)
-
-
-def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """bits [..., 64] bool -> [..., ] int64 (bit i = bits[..., i])."""
-    w = _BIT_WEIGHTS.to(bits.device)
-    # distinct powers of two: the sum is the bitwise or (bit 63 wraps into
-    # the sign, as two's complement does)
-    return torch.sum(torch.where(bits, w, 0), -1)
-
-
-def _popcount(x: torch.Tensor) -> torch.Tensor:
-    """Set bits of each int64 -> int32, one byte-table lookup per byte."""
-    table = _BYTE_BITS.to(x.device)
-    count = table[x & 255]
-    for s in range(8, 64, 8):
-        count = count + table[(x >> s) & 255]
-    return count
-
-
-def _hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Hamming distance of int64 signatures (broadcastable) -> int32."""
-    return _popcount(torch.bitwise_xor(a, b))
-
 
 def _he_weight(h: torch.Tensor) -> torch.Tensor:
     """exp(-h^2/sigma^2), zeroed beyond HE_MAX_DIST (utils.h:52-83)."""
     w = torch.exp(-(h.to(torch.float32) ** 2) / (HE_SIGMA ** 2))
     return torch.where(h <= HE_MAX_DIST, w, 0.0)
-
-
-def sigs_to_u32(sigs: np.ndarray) -> np.ndarray:
-    """int64 signatures [...] -> `cvt_tpu`'s [..., 2] uint32 words."""
-    u = np.asarray(sigs, np.int64).view(np.uint64)
-    return np.stack([(u & 0xFFFFFFFF).astype(np.uint32),
-                     (u >> np.uint64(32)).astype(np.uint32)], -1)
-
-
-def sigs_from_u32(words: np.ndarray) -> np.ndarray:
-    """`cvt_tpu`'s [..., 2] uint32 words -> int64 signatures [...]."""
-    w = np.asarray(words, np.uint32).astype(np.uint64)
-    return (w[..., 0] | (w[..., 1] << np.uint64(32))).view(np.int64)
 
 
 def _score_query_many(q_words, q_sigs, q_valid, buckets_img, buckets_sig,

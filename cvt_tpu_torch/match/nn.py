@@ -27,9 +27,9 @@ from cvt_tpu_torch.ops.topk import top_k_smallest
 
 
 class MatchResult(NamedTuple):
-    """idx2 [K1] best match in set 2 (int64) for each row of set 1, dist
-    [K1] squared L2, valid [K1] bool (passed ratio/cross/threshold and
-    both endpoints are real keypoints)."""
+    """idx2 [..., K1] best match in set 2 (int64) for each row of set 1,
+    dist [..., K1] squared L2, valid [..., K1] bool (passed
+    ratio/cross/threshold and both endpoints are real keypoints)."""
     idx2: torch.Tensor
     dist: torch.Tensor
     valid: torch.Tensor
@@ -42,27 +42,28 @@ def _mask(valid, k: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def _distances(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
-    """[K1, K2] squared L2 distances, n1 - 2 ip + n2 (not clamped)."""
+    """[..., K1, K2] squared L2 distances, n1 - 2 ip + n2 (not clamped)."""
     n1 = torch.sum(d1 * d1, -1)
     n2 = torch.sum(d2 * d2, -1)
-    return n1[:, None] - 2.0 * (d1 @ d2.T) + n2[None, :]
+    return (n1[..., :, None] - 2.0 * (d1 @ d2.transpose(-1, -2))
+            + n2[..., None, :])
 
 
 def _two_nn(dist, valid1, ratio: float, cross_check: bool,
             max_dist: float) -> MatchResult:
-    """The shared tail of plain and guided matching on a [K1, K2] matrix
-    whose invalid (or gated) entries hold +inf. A row without a finite
-    candidate fails the ratio test (inf < inf is false) and keeps
+    """The shared tail of plain and guided matching on a [..., K1, K2]
+    matrix whose invalid (or gated) entries hold +inf. A row without a
+    finite candidate fails the ratio test (inf < inf is false) and keeps
     dist +inf, as in both of `cvt_tpu`'s matchers."""
     vals, top2 = top_k_smallest(dist, 2)
-    best, second = vals[:, 0], vals[:, 1]
-    idx2 = top2[:, 0]
+    best, second = vals[..., 0], vals[..., 1]
+    idx2 = top2[..., 0]
     ok = valid1 & (best < (ratio * ratio) * second) & (best < max_dist)
     if cross_check:
-        dist_t = torch.where(valid1[:, None], dist, math.inf)
-        back = torch.argmin(dist_t, dim=0)                      # [K2]
-        ok = ok & (back[idx2] == torch.arange(dist.shape[0],
-                                              device=dist.device))
+        dist_t = torch.where(valid1[..., :, None], dist, math.inf)
+        back = torch.argmin(dist_t, dim=-2)                     # [..., K2]
+        ok = ok & (torch.gather(back, -1, idx2) == torch.arange(
+            dist.shape[-2], device=dist.device))
     return MatchResult(idx2=idx2, dist=torch.clamp_min(best, 0.0), valid=ok)
 
 
@@ -71,11 +72,13 @@ def match_descriptors(d1, d2, valid1=None, valid2=None, *,
                       max_dist: float = math.inf) -> MatchResult:
     """d1 [K1, D], d2 [K2, D] (unit-normalized or raw); returns per-row-of-
     d1 best match in d2. Lowe ratio test on squared distances uses
-    dist1 < ratio^2 * dist2. Tensors keep their device; numpy goes to
-    the card (`utils.device.resolve_device`)."""
+    dist1 < ratio^2 * dist2. Leading batch dims broadcast (one template
+    against [T, K2, D] frames: one [T, K1, K2] product, one top-2).
+    Tensors keep their device; numpy goes to the card
+    (`utils.device.resolve_device`)."""
     d1 = _f32(d1)
     d2 = _f32(d2, d1)
-    valid1 = _mask(valid1, d1.shape[0], d1)
-    valid2 = _mask(valid2, d2.shape[0], d1)
-    dist = torch.where(valid2[None, :], _distances(d1, d2), math.inf)
+    valid1 = _mask(valid1, d1.shape[-2], d1)
+    valid2 = _mask(valid2, d2.shape[-2], d1)
+    dist = torch.where(valid2[..., None, :], _distances(d1, d2), math.inf)
     return _two_nn(dist, valid1, ratio, cross_check, max_dist)

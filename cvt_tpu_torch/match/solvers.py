@@ -31,7 +31,9 @@ def fit_affine(src, dst, weights=None) -> torch.Tensor:
     """Least-squares affine A (2x3) with dst ~= A @ [src; 1].
 
     src/dst [..., n, 2] (n >= 3); weights [..., n]. Batched closed-form
-    normal equations, regularised by 1e-6 I."""
+    normal equations, regularised by 1e-6 I. A singular system (one or
+    two weighted points far from the origin) gives a non-finite model and
+    no error, as `jnp.linalg.solve` does (`torch.linalg.solve` raises)."""
     src = _f32(src)
     dst = _f32(dst, src)
     x = torch.cat([src, torch.ones_like(src[..., :1])], -1)     # [..., n, 3]
@@ -39,7 +41,7 @@ def fit_affine(src, dst, weights=None) -> torch.Tensor:
     xtx = torch.einsum("...ni,...nj->...ij", xw, x)
     xty = torch.einsum("...ni,...nj->...ij", xw, dst)
     eye = torch.eye(3, dtype=torch.float32, device=src.device) * 1e-6
-    sol = torch.linalg.solve(xtx + eye, xty)                   # [..., 3, 2]
+    sol = torch.linalg.solve_ex(xtx + eye, xty)[0]             # [..., 3, 2]
     return sol.mT                                              # [..., 2, 3]
 
 
@@ -101,7 +103,7 @@ def fit_homography_dlt(src, dst, weights=None) -> torch.Tensor:
     _, _, vt = torch.linalg.svd(a, full_matrices=True)
     h = vt[..., -1, :].reshape(src.shape[:-2] + (3, 3))
     # denormalize: H = T2^-1 Hn T1
-    h = torch.linalg.solve(t2, h @ t1)
+    h = torch.linalg.solve_ex(t2, h @ t1)[0]
     return h / (h[..., 2:3, 2:3] + 1e-12)
 
 

@@ -71,7 +71,14 @@ MODULES = ["cvt_tpu_torch.quant.sq", "cvt_tpu_torch.quant.pca",
            "cvt_tpu_torch.match.bundle", "cvt_tpu_torch.match.lad",
            "cvt_tpu_torch.match.reconstruction",
            "cvt_tpu_torch.match.scene_graph_utils",
-           "cvt_tpu_torch.apps.undistort"]
+           "cvt_tpu_torch.apps.undistort", "cvt_tpu_torch.features.lines",
+           "cvt_tpu_torch.features.embedding", "cvt_tpu_torch.features.text",
+           "cvt_tpu_torch.apps.phash", "cvt_tpu_torch.apps.detect",
+           "cvt_tpu_torch.apps.motion_area", "cvt_tpu_torch.apps.pupil",
+           "cvt_tpu_torch.apps.template_match",
+           "cvt_tpu_torch.apps.video_match", "cvt_tpu_torch.io.video",
+           "cvt_tpu_torch.native", "cvt_tpu_torch.ops.bits",
+           "cvt_tpu_torch.ops.resize"]
 
 
 def _python(code: str, *args, stdin: str | None = None):

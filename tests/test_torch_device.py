@@ -336,3 +336,94 @@ def test_undistort_and_ba_follow_device_rule(no_card):
                                          [0], [0], np.zeros((1, 2)), [1.0],
                                          device="cpu")
     assert prob.cam_idx.dtype == torch.int64
+
+
+# the entry points of the features / apps slice: numpy in, the card unless
+# asked for the CPU
+_EYE = np.full((1, 48, 64), 0.8, np.float32)
+_HEAD = RNG.normal(size=(1, 4, 4, 7)).astype(np.float32)
+
+
+def _slice_entry_points():
+    import importlib
+    from cvt_tpu_torch.apps import detect, motion_area, pupil, template_match
+    from cvt_tpu_torch.apps import video_match
+    from cvt_tpu_torch.features import embedding, text
+    from cvt_tpu_torch.features import lines
+    phash = importlib.import_module("cvt_tpu_torch.apps.phash")
+    tmpl = RNG.random((40, 40)).astype(np.float32)
+    return {
+        "EmbeddingExtractor.simple_cnn":
+            lambda dev: embedding.EmbeddingExtractor.simple_cnn(
+                dim=8, input_size=32, device=dev).compute(
+                    np.zeros((1, 40, 48, 3), np.uint8)),
+        "TextEmbedder": lambda dev: text.TextEmbedder(
+            {"a": 0}, X[:1], X[:4], device=dev).vectors,
+        "TextEmbedder.random": lambda dev: text.TextEmbedder.random(
+            ["a"], dim=4, n_buckets=8, device=dev).ngrams,
+        "TextEmbedding": lambda dev: embedding.TextEmbedding(
+            {"a": 0}, X[:1], device=dev).table,
+        "embed_ids": lambda dev: text.embed_ids(X[:4], [[0, 1]], [[1, 1]],
+                                                device=dev),
+        "embedding_from_numpy": lambda dev: convert.embedding_from_numpy(
+            [np.zeros((3, 3, 3, 4), np.float32)], np.zeros((4, 2),
+                                                           np.float32),
+            device=dev).compute(np.zeros((1, 8, 8, 3), np.uint8)),
+        "phash": lambda dev: phash.phash(IMG[:, :32, :32], device=dev),
+        "resize_gray_32": lambda dev: phash.resize_gray_32(IMG, device=dev),
+        "is_pure_image": lambda dev: phash.is_pure_image(IMG, device=dev),
+        "hamming_distance": lambda dev: phash.hamming_distance(
+            np.zeros(2, np.int64), np.ones(3, np.int64), device=dev),
+        "decode_fastestdet": lambda dev: detect.decode_fastestdet(
+            _HEAD, max_dets=4, device=dev).scores,
+        "detect_motion_area": lambda dev: motion_area.detect_motion_area(
+            np.repeat(IMG, 3, 0), device=dev).motion_mask,
+        "find_topk_boxes": lambda dev: torch.tensor(
+            motion_area.find_topk_boxes(np.repeat(IMG, 3, 0), 1,
+                                        device=dev)[1]),
+        "find_pupil": lambda dev: pupil.find_pupil(None, _EYE, n_trials=4,
+                                                   device=dev).center,
+        "coarse_pupil_center": lambda dev: pupil.coarse_pupil_center(
+            _EYE, device=dev)[0],
+        "remove_specular": lambda dev: pupil.remove_specular(_EYE,
+                                                             device=dev),
+        "detect_line_segments": lambda dev: lines.detect_line_segments(
+            IMG, max_segments=4, device=dev).nfa,
+        "TemplateMatcher": lambda dev: template_match.TemplateMatcher(
+            tmpl, max_features=16, device=dev).tmpl.frames,
+        "LogoDetector": lambda dev: template_match.LogoDetector(
+            {"a": [tmpl]}, max_features=16, device=dev).matchers["a"][
+                0].tmpl.frames,
+        "VideoObjectMatcher": lambda dev: video_match.VideoObjectMatcher(
+            tmpl, max_features=16, device=dev).matcher.tmpl.frames,
+    }
+
+
+SLICE_ENTRY_POINTS = sorted(_slice_entry_points())
+
+
+@pytest.mark.parametrize("name", SLICE_ENTRY_POINTS)
+def test_slice_entry_point_without_card_raises(no_card, name):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _slice_entry_points()[name](None)
+
+
+@pytest.mark.parametrize("name", SLICE_ENTRY_POINTS)
+def test_slice_entry_point_with_device_cpu_works(no_card, name):
+    out = _slice_entry_points()[name]("cpu")
+    assert out.device == torch.device("cpu")
+
+
+def test_logo_pack_loads_where_asked(no_card, tmp_path):
+    from cvt_tpu_torch.apps.template_match import LogoDetector
+    tmpl = RNG.random((40, 40)).astype(np.float32)
+    path = str(tmp_path / "pack.npz")
+    LogoDetector({"a": [tmpl]}, max_features=16, device="cpu").save(path)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        LogoDetector.load(path)
+    det = LogoDetector.load(path, device="cpu")
+    assert det.matchers["a"][0].tmpl.frames.device == torch.device("cpu")
+    # CPU tensors keep their device through the functions handed tensors
+    from cvt_tpu_torch.apps.detect import decode_fastestdet
+    assert decode_fastestdet(torch.from_numpy(_HEAD), max_dets=4
+                             ).scores.device == torch.device("cpu")
