@@ -4,8 +4,10 @@
 
 1. Card and kernels: refuses to run without CUDA; prints the card's name
    and power limit (nvidia-smi); pins float32 matrix products to full
-   precision; builds the CUDA kernels from csrc/ (timed) and prints each
-   kernel's registers and spills (ptxas) and, where the toolkit has
+   precision and leaves cuDNN's TF32 flag at PyTorch's default (the
+   port's convolutions set full precision for their own calls); builds
+   the CUDA kernels from csrc/ (timed) and prints each kernel's
+   registers and spills (ptxas) and, where the toolkit has
    cuobjdump, the count of each scoring instruction class in its SASS
    (IMMA / IGMMA: int8 tensor cores; IDP4A: dp4a on the CUDA cores);
    `ivf_page` must show IGMMA and no IDP4A.
@@ -217,6 +219,31 @@
    step 21: adc_segmin_cached launched, the other two 0. A torch.profiler
    list of one step-21 batch is printed at the end.
 
+26. Records -> ArcFace training -> embeddings -> cvt records -> SQ and
+   HNSW indexes, at the ArcFace head's published widths (25,088 -> 512
+   over 85,742 classes, batch 512, s 64, m 0.5; Deng et al., CVPR 2019):
+   8,192 seeded class-structured samples (1,024 identities x 8: a centre,
+   a 64-d nuisance subspace, noise) written by RecordDataset.from_arrays;
+   one step on the card against the CPU from the same parameters (loss
+   rtol 1e-4, gradients max|diff| <= 1e-4 max|g|), make_sharded_train_step
+   on a 1-rank NCCL group against train_step, Timer and profile.trace
+   around one step each; 120 steps (10 epochs of the 6 trained samples per
+   identity) through RecordDataset.batches with CUDA-event step times, the
+   host data time apart (gate: the last loss <= 0.5 of the first); embed
+   a gallery (the trained samples and one held-out sample per identity)
+   and the second held-out samples as queries; write_cvt_records (native)
+   and read_cvt_records, bytes equal the Python loop's; FlatSQIndex
+   search_fast (the cached kernel at D 512, seg 64) and bf16 search
+   (gates: same-identity recall@1 >= 0.95, recall@1 parity against the
+   exact nearest <= 1.0 pt),
+   the kernel against its twin at these arguments, its time and bound;
+   HnswIndex(ip, M 32, efC 80) over the same embeddings (recall@1 >=
+   0.95), HnswIndex(l2) over the first 100,000 of the main path's base
+   (recall@10 against exact FlatIndex >= 0.90 at ef 100); the dry run
+   (parallel.dryrun) on the 1-rank group. Counts zeroed before step 26:
+   adc_segmin launched by the dry run's server, adc_segmin_cached by the
+   search, ivf_page 0.
+
 Every ADC kernel-against-twin check demands segpack and tiletop bitwise
 equal, except that a row whose norm/qs lies within 1e-4 of a half-integer
 may move its key by seg (float32 summation order); such rows are counted
@@ -329,6 +356,26 @@ EMB_N, EMB_B, EMB_DIM, EMB_CPU, EMB_Q, EMB_K, EMB_NOISE = \
 TEXT_DIM, TEXT_BUCKETS, TEXT_VOCAB, TEXT_SENTS, TEXT_LEN = \
     300, 2_000_000, 200_000, 10_000, 12
 TEXT_OOV, TEXT_IDS = 0.10, (4096, 32)
+# step 26: the ArcFace output head at its published widths (Deng et al.,
+# ArcFace, CVPR 2019, arXiv:1801.07698, sections 3 and 4.1): the "E"
+# layer, FC from the 512 x 7 x 7 = 25,088-d last feature map to a 512-d
+# embedding; s 64, m 0.5; batch 512; MS1MV2's 85,742 identities as the
+# head's width. Cuts: 1,024 identities carry samples, 8 each (6 trained
+# on, 2 held out); seeded class-structured features stand in for a
+# ResNet-100's maps (no weights on disk): an identity centre, a shared
+# 64-d nuisance subspace at 3x the centre's scale per axis (pose, light),
+# unit noise. HNSW at hnsw_sifts_retrieval's operating point (M 32, efC
+# 80), also over the first 100,000 of the main path's base (cut from 1M)
+ARC_IN, ARC_EMB, ARC_CLASSES, ARC_B, ARC_S, ARC_M = \
+    25_088, 512, 85_742, 512, 64.0, 0.5
+ARC_IDS, ARC_PER, ARC_TRAIN_PER, ARC_EPOCHS = 1024, 8, 6, 10
+ARC_NUIS_DIM, ARC_NUIS, ARC_NOISE, ARC_EMBED_CHUNK = 64, 3.0, 1.0, 1024
+HNSW_M, HNSW_EFC, HNSW_EF, HNSW_N = 32, 80, 100, 100_000
+# gates, set from a CPU run at reduced size (PERF.md, section 6)
+ARC_GATES = dict(loss_ratio=0.5, recall=0.95, parity_pt=1.0,
+                 hnsw_recall10=0.90, loss_rtol=1e-4, grad=1e-4)
+# H100 SXM data sheet: float32 outside the tensor cores (TF32 is off)
+PEAK_FP32_FLOPS = 67e12
 # H100 SXM data sheet: dense int8 tensor-core rate, HBM3 bandwidth
 PEAK_INT8_OPS, HBM_BYTES_PER_S = 1.979e15, 3.35e12
 SASS_CLASSES = ("IMMA", "IGMMA", "IDP4A")
@@ -917,14 +964,16 @@ def phase_sq(base_dev, q_dev) -> dict:
 
 def sq_kernel_args(idx, xq):
     """The cached kernel's arguments in FlatSQIndex.search_fast: the
-    bias-folded queries, the index's cache and norm column, its tile."""
+    bias-folded queries, the index's cache and norm column, its tile and
+    the segment of its width."""
     from cvt_tpu_torch.ops.kernels import adc_scan as T
     sq = idx.sq
     q = xq - (sq.bias + 128.0 * sq.scale)[None, :]
-    vcap, _ = T._pack_caps(T.SEG, D)
+    seg = T.cached_seg(xq.shape[1])
+    vcap, _ = T._pack_caps(seg, xq.shape[1])
     q2s, qs = T._fold_queries(q, sq.scale, torch.amax(idx._norm_col), vcap)
     return (q2s, qs, idx._dec8_t, idx._norm_col, idx.ntotal,
-            T.cached_tile_n(idx._dec8_t.shape[1]))
+            T.cached_tile_n(idx._dec8_t.shape[1]), seg)
 
 
 def phase_sq_timing(idx, xq, args, reps: int) -> dict:
@@ -1753,10 +1802,30 @@ def run_feature_cli(tmp: str) -> dict:
     return out
 
 
+def device_ops(prof) -> list:
+    """(name, self device ms, calls) of a profile's operations, largest
+    first: the CUDA kernels, or every operation with device time where
+    the profiler tags none as CUDA."""
+    from torch.autograd import DeviceType
+    ev = prof.key_averages()
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in ev
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    if not ops:
+        ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in ev if e.self_device_time_total > 0]
+    return sorted(ops, key=lambda o: -o[1])
+
+
+def host_ops(prof) -> list:
+    """(name, self host ms, calls), largest first."""
+    return sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), key=lambda o: -o[1])
+
+
 def feature_profile(x: torch.Tensor, k: int, top: int = 12) -> dict:
     """torch.profiler over one extract_sift batch: the top device
     operations by self device time, their sum and the wall clock."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from cvt_tpu_torch.features import extract_sift
     extract_sift(x, max_features=k, **FEAT_OPTS)
@@ -1767,15 +1836,9 @@ def feature_profile(x: torch.Tensor, k: int, top: int = 12) -> dict:
         extract_sift(x, max_features=k, **FEAT_OPTS)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
-           for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    if not ops:
-        ops = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages() if e.self_device_time_total > 0]
-    ops.sort(key=lambda o: -o[1])
-    total = sum(o[1] for o in ops)
-    return {"wall_ms": wall, "device_ms": total, "top": ops[:top]}
+    ops = device_ops(prof)
+    return {"wall_ms": wall, "device_ms": sum(o[1] for o in ops),
+            "top": ops[:top]}
 
 
 def run_features(stamp: str) -> dict:
@@ -2342,7 +2405,6 @@ def match_profile(images, n_pairs: int, top: int = 10) -> dict:
     device time, their sum, the wall clock, and the top host operations
     and CUDA runtime calls by self host time (where the host waits)."""
     import tempfile
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from cvt_tpu_torch.io.database import FeatureDatabase
     from cvt_tpu_torch.match import pipelines as pl
@@ -2359,16 +2421,7 @@ def match_profile(images, n_pairs: int, top: int = 10) -> dict:
                 pl.match_pairs(db, pairs, device=DEV, skip_existing=False)
                 torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
-           for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    if not ops:
-        ops = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages() if e.self_device_time_total > 0]
-    ops.sort(key=lambda o: -o[1])
-    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.self_cpu_time_total > 0), key=lambda o: -o[1])
+    ops, host = device_ops(prof), host_ops(prof)
     return {"pairs": len(pairs), "wall_ms": wall,
             "device_ms": sum(o[1] for o in ops), "top": ops[:top],
             "host": host[:top]}
@@ -2889,7 +2942,6 @@ def ba_profile(rec, top: int = 10) -> dict:
     """torch.profiler over one bundle_adjust call on step 19's scene (its
     BAProblem, RC_PROFILE_ITERS LM steps): top device and host operations
     and the count of kernel launches."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from cvt_tpu_torch.match import bundle as B
     prob = rec.to_ba_problem()[0]
@@ -2902,12 +2954,7 @@ def ba_profile(rec, top: int = 10) -> dict:
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     ev = prof.key_averages()
-    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                  for e in ev if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total), key=lambda o: -o[1])
-    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
-                   for e in ev if e.self_cpu_time_total > 0),
-                  key=lambda o: -o[1])
+    ops, host = device_ops(prof), host_ops(prof)
     launches = sum(e.count for e in ev if e.key in (
         "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
         "cuLaunchKernelEx"))
@@ -3576,7 +3623,7 @@ def phase_embeddings() -> dict:
     args = sq_kernel_args(idx, q)
     res["cmp"] = compare_kernel_to_twin(
         T.adc_segmin_cached, T.adc_segmin_cached_plain, args,
-        args[3][:, 0], args[1], args[-1])
+        args[3][:, 0], args[1], args[5], args[6])
     res["fast_ms"] = cuda_median_ms(lambda: idx.search_fast(q, EMB_K), 10)[0]
     res["bf16_ms"] = cuda_median_ms(lambda: idx.search(q, EMB_K), 10)[0]
     res["kernel_ms"] = cuda_median_ms(lambda: T.adc_segmin_cached(*args),
@@ -3584,7 +3631,7 @@ def phase_embeddings() -> dict:
     res["plain_ms"] = cuda_median_ms(
         lambda: T.adc_segmin_cached_plain(*args), 3)[0]
     res["bound"] = share(res["kernel_ms"], adc_bound(args, cached=True))
-    res["npad"], res["tile"] = args[2].shape[1], args[-1]
+    res["npad"], res["tile"] = args[2].shape[1], args[5]
 
     rng = np.random.default_rng(SEED + 252)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
@@ -3625,7 +3672,6 @@ def phase_embeddings() -> dict:
 def apps_profile(det, batch: torch.Tensor, top: int = 10) -> dict:
     """torch.profiler over one step-21 batch (LogoDetector.detect on
     LOGO_B images): top device and host operations by self time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     det.detect(batch)                                         # warm
     torch.cuda.synchronize()
@@ -3635,17 +3681,7 @@ def apps_profile(det, batch: torch.Tensor, top: int = 10) -> dict:
         det.detect(batch)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    ev = prof.key_averages()
-    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                  for e in ev if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total), key=lambda o: -o[1])
-    if not ops:
-        ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in ev if e.self_device_time_total > 0),
-                     key=lambda o: -o[1])
-    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
-                   for e in ev if e.self_cpu_time_total > 0),
-                  key=lambda o: -o[1])
+    ops, host = device_ops(prof), host_ops(prof)
     return {"wall_ms": wall, "device_ms": sum(o[1] for o in ops),
             "top": ops[:top], "host": host[:top]}
 
@@ -3780,6 +3816,415 @@ def run_apps(stamp: str) -> dict:
     return {"detector": lv["_detector"], "batch": lv["_batch"], "emb": em}
 
 
+def arcface_data():
+    """Step 26's samples on the card: ARC_IDS identities x ARC_PER, each
+    an identity centre + a shared ARC_NUIS_DIM-d nuisance subspace (ARC_NUIS
+    per axis) + unit noise at ARC_IN; each identity's class column drawn
+    from all ARC_CLASSES. Returns (x [N, ARC_IN] host float32, class
+    labels [N], identity [N], sample index within the identity [N])."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 260)
+    cls = torch.randperm(ARC_CLASSES, generator=g, device=DEV)[:ARC_IDS]
+    n = ARC_IDS * ARC_PER
+    ident = torch.arange(ARC_IDS, device=DEV).repeat_interleave(ARC_PER)
+    centres = torch.randn((ARC_IDS, ARC_IN), generator=g, device=DEV)
+    basis = torch.randn((ARC_IN, ARC_NUIS_DIM), generator=g,
+                        device=DEV) / ARC_NUIS_DIM ** 0.5
+    z = ARC_NUIS * torch.randn((n, ARC_NUIS_DIM), generator=g, device=DEV)
+    x = centres[ident] + z @ basis.T + ARC_NOISE * torch.randn(
+        (n, ARC_IN), generator=g, device=DEV)
+    x_host = x.cpu().numpy()
+    del x, centres
+    ident = ident.cpu().numpy()
+    return (x_host, cls.cpu().numpy()[ident].astype(np.int32), ident,
+            np.arange(n) % ARC_PER)
+
+
+def clone_params(params, device) -> dict:
+    return {"layers": [{k: v.detach().to(device, copy=True)
+                        for k, v in lyr.items()} for lyr in params["layers"]],
+            "head": params["head"].detach().to(device, copy=True)}
+
+
+def arcface_grads(params, x, y, device):
+    """(loss, gradients) of one step's loss at `device`, from copies of
+    `params`; no optimizer step."""
+    from cvt_tpu_torch.train import arcface_loss, parameters, \
+        state_from_params
+    st, _ = state_from_params(clone_params(params, device))
+    loss = arcface_loss(st.params, torch.from_numpy(x).to(device),
+                        torch.from_numpy(y).to(device), scale=ARC_S,
+                        margin=ARC_M)
+    loss.backward()
+    return float(loss.detach()), [p.grad for p in parameters(st.params)]
+
+
+def step_flops(b: int) -> float:
+    """Multiply-adds x 2 of one train step: the E layer's and the head's
+    products forward, their weight gradients and the embedding's gradient
+    backward (the input needs none)."""
+    return 2.0 * b * (2 * ARC_IN * ARC_EMB + 3 * ARC_EMB * ARC_CLASSES)
+
+
+def step_bytes(params) -> float:
+    """The least bytes of one train step: the batch read once, the logits
+    written once, and Adam reading parameters, gradients and both moments
+    and writing parameters and moments (float32)."""
+    n = sum(p.numel() for p in params)
+    return 4.0 * (ARC_B * ARC_IN + ARC_B * ARC_CLASSES + 7 * n)
+
+
+def identity_recall(ids, gal_ident, q_ident) -> float:
+    """Share of queries whose first hit is an image of their identity."""
+    ids = np.asarray(torch.as_tensor(ids).cpu())[:, 0]
+    return float(np.mean((ids >= 0) & (gal_ident[ids] == q_ident)))
+
+
+def phase_records_training(tmp: str, base_dev, q_dev) -> dict:
+    """Step 26: records -> ArcFace training -> embeddings -> cvt_records ->
+    SQ and HNSW indexes, the dry run; see the module docstring."""
+    import torch.distributed as dist
+    from cvt_tpu_torch.index import FlatIndex, FlatSQIndex, HnswIndex
+    from cvt_tpu_torch.io import read_cvt_records, write_cvt_records
+    from cvt_tpu_torch.io import vecs
+    from cvt_tpu_torch.native import load_library
+    from cvt_tpu_torch.ops.kernels import adc_scan as T
+    from cvt_tpu_torch.ops.linalg import l2_normalize
+    from cvt_tpu_torch.parallel.dryrun import dryrun_multichip
+    from cvt_tpu_torch.quant import ScalarQuantizer
+    from cvt_tpu_torch.train import (RecordDataset, create_state, embed,
+                                     make_sharded_train_step, parameters,
+                                     state_from_params, train_step)
+    from cvt_tpu_torch.utils import Timer, recall_at_k, roofline, trace
+    res = {}
+    kw = dict(scale=ARC_S, margin=ARC_M)
+    (x, y, ident, samp), res["data_s"] = timed(arcface_data)
+    train = samp < ARC_TRAIN_PER
+    paths = {k: os.path.join(tmp, f"{k}.cvtr") for k in ("train", "held")}
+    t0 = time.perf_counter()
+    RecordDataset.from_arrays(paths["train"], x[train], y[train])
+    RecordDataset.from_arrays(paths["held"], x[~train], y[~train])
+    res["records_write_s"] = time.perf_counter() - t0
+    res["records_mb"] = sum(os.path.getsize(p) for p in paths.values()) / 1e6
+    # the file system's own rate: one sequential pass over the train file
+    t0 = time.perf_counter()
+    with open(paths["train"], "rb") as f:
+        while f.read(1 << 24):
+            pass
+    res["seq_read_mb_s"] = (os.path.getsize(paths["train"]) / 1e6
+                            / (time.perf_counter() - t0))
+    ds = RecordDataset(paths["train"])
+    assert len(ds) == int(train.sum()) and ds.num_classes <= ARC_CLASSES
+    assert np.array_equal(ds[5][0], x[train][5]) and ds[5][1] == y[train][5]
+
+    state, opt = create_state(SEED, dim_in=ARC_IN, num_classes=ARC_CLASSES,
+                              dim_emb=ARC_EMB, device=DEV)
+    xb0, yb0 = next(ds.batches(ARC_B, seed=SEED + 262))
+    # card against CPU: one step's loss and gradients, same parameters
+    (loss_g, grads_g), res["grad_card_s"] = timed(
+        lambda: arcface_grads(state.params, xb0, yb0, DEV))
+    t0 = time.perf_counter()
+    loss_c, grads_c = arcface_grads(state.params, xb0, yb0, "cpu")
+    res["grad_cpu_s"] = time.perf_counter() - t0
+    res["loss_card"], res["loss_cpu"] = loss_g, loss_c
+    res["grad_rel"] = max(float((g.cpu() - c).abs().max() / c.abs().max())
+                          for g, c in zip(grads_g, grads_c))
+    del grads_g, grads_c
+    assert abs(loss_g - loss_c) <= ARC_GATES["loss_rtol"] * abs(loss_c), res
+    assert res["grad_rel"] <= ARC_GATES["grad"], res
+
+    # the data-parallel step on a 1-rank NCCL group against train_step
+    sa, oa = state_from_params(clone_params(state.params, DEV))
+    sb, ob = state_from_params(clone_params(state.params, DEV))
+    step = make_sharded_train_step(None, ob, device=DEV, **kw)
+    sa, la = train_step(sa, xb0, yb0, oa, **kw)
+    sb, lb = step(sb, xb0, yb0)
+    torch.cuda.synchronize()
+    res["sharded_loss_equal"] = float(la) == float(lb)
+    res["sharded_grad_max"] = max(
+        float((p.grad - q.grad).abs().max()) for p, q in
+        zip(parameters(sa.params), parameters(sb.params)))
+    res["sharded_param_max"] = max(
+        float((p - q).detach().abs().max()) for p, q in
+        zip(parameters(sa.params), parameters(sb.params)))
+    assert abs(float(la) - float(lb)) <= 1e-6 * abs(float(la)), res
+    assert res["sharded_grad_max"] <= 1e-6 * max(
+        float(p.grad.abs().max()) for p in parameters(sa.params)), res
+    del sb, ob, step
+
+    # training: ARC_EPOCHS epochs over the record file, batches to the card
+    torch.cuda.reset_peak_memory_stats()
+    it = ds.batches(ARC_B, seed=SEED + 261, epochs=ARC_EPOCHS)
+    losses, events, data_s = [], [], []
+    torch.cuda.synchronize()
+    t_train = time.perf_counter()
+    while True:
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        data_s.append(time.perf_counter() - t0)
+        if batch is None:
+            break
+        xd = torch.from_numpy(batch[0]).to(DEV)
+        yd = torch.from_numpy(batch[1]).to(DEV)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, loss = train_step(state, xd, yd, opt, **kw)
+        ev[1].record()
+        losses.append(loss)
+        events.append(ev)
+    torch.cuda.synchronize()
+    res["train_wall_s"] = time.perf_counter() - t_train
+    losses = torch.stack(losses).cpu().numpy()
+    step_ms = np.array([a.elapsed_time(b) for a, b in events])
+    res.update(steps=len(losses), loss_first=float(losses[0]),
+               loss_last=float(losses[-1]),
+               loss_ratio=float(losses[-1] / losses[0]),
+               step_ms_median=float(np.median(step_ms)),
+               step_ms_q=[float(v) for v in np.percentile(step_ms,
+                                                          [0, 25, 75, 100])],
+               data_ms_median=float(np.median(data_s[:-1]) * 1e3),
+               data_s_total=float(np.sum(data_s)),
+               samples_per_s=len(losses) * ARC_B / res["train_wall_s"],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=[float(v) for v in losses[::12]])
+    res["roofline"] = str(roofline(step_flops(ARC_B), step_bytes(
+        parameters(state.params)), res["step_ms_median"] / 1e3))
+    res["fp32_share"] = (step_flops(ARC_B) / PEAK_FP32_FLOPS * 1e3
+                         / res["step_ms_median"])
+    assert state.step == ARC_EPOCHS * (int(train.sum()) // ARC_B)
+    assert np.isfinite(losses).all()
+    assert res["loss_ratio"] <= ARC_GATES["loss_ratio"], res
+
+    # Timer and the profiler around one step each (on the copy; after the
+    # loop, since the profiler's hooks slow the host side of later steps)
+    xd, yd = torch.from_numpy(xb0).to(DEV), torch.from_numpy(yb0).to(DEV)
+    with Timer("arcface step") as t:
+        t.observe(train_step(sa, xd, yd, oa, **kw)[1])
+    res["timer_ms"] = t.elapsed * 1e3
+    with trace(os.path.join(tmp, "trace")) as prof:
+        train_step(sa, xd, yd, oa, **kw)
+        torch.cuda.synchronize()
+    res["profile_top"] = device_ops(prof)[:8]
+    res["trace_files"] = len(os.listdir(os.path.join(tmp, "trace")))
+    del sa, oa, xd, yd
+
+    # embed: gallery = the trained samples + each identity's first held-out
+    # sample; queries = each identity's second held-out sample
+    gal = np.concatenate([np.flatnonzero(train),
+                          np.flatnonzero(samp == ARC_TRAIN_PER)])
+    qry = np.flatnonzero(samp == ARC_TRAIN_PER + 1)
+
+    def embed_rows(rows):
+        return torch.cat([embed(state.params, torch.from_numpy(
+            x[rows[s:s + ARC_EMBED_CHUNK]]).to(DEV))
+            for s in range(0, len(rows), ARC_EMBED_CHUNK)])
+    (emb_g, emb_q), res["embed_s"] = timed(
+        lambda: (embed_rows(gal), embed_rows(qry)))
+    gal_ident, q_ident = ident[gal], ident[qry]
+    # the raw features' own recall (the task without training)
+    raw = FlatIndex(ARC_IN, "ip", chunk=2048, device=DEV)
+    raw.add(l2_normalize(torch.from_numpy(x[gal]).to(DEV)))
+    res["raw_recall_at_1"] = identity_recall(raw.search(
+        l2_normalize(torch.from_numpy(x[qry]).to(DEV)), 1)[1], gal_ident,
+        q_ident)
+    del raw
+
+    # the embeddings as a cvt record stream: native writer and reader,
+    # the bytes against the Python loop's
+    load_library("vecs_io")        # raises with the compiler's message
+    names = [f"id{int(i):05d}/{int(j)}" for i, j in zip(ident[gal],
+                                                        samp[gal])]
+    emb_np = emb_g.cpu().numpy()
+    rec = {k: os.path.join(tmp, f"emb_{k}.bin") for k in ("native", "py")}
+    _, res["cvtr_write_s"] = timed(
+        lambda: write_cvt_records(rec["native"], names, emb_g))
+    t0 = time.perf_counter()
+    back_names, back = read_cvt_records(rec["native"])
+    res["cvtr_read_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vecs._write_cvt_records_py(rec["py"], names, emb_np)
+    res["cvtr_write_py_s"] = time.perf_counter() - t0
+    res["cvtr_mb"] = os.path.getsize(rec["native"]) / 1e6
+    with open(rec["native"], "rb") as a, open(rec["py"], "rb") as b:
+        res["cvtr_bytes_equal"] = a.read() == b.read()
+    assert back_names == names and np.array_equal(back, emb_np), \
+        "cvt_records round trip"
+    assert res["cvtr_bytes_equal"], "native and Python record bytes differ"
+
+    # SQ: search_fast (the cached kernel at D ARC_EMB) and bf16 search
+    exact = FlatIndex(ARC_EMB, "l2", device=DEV)
+    exact.add(emb_g)
+    gt = exact.search(emb_q, 1)[1][:, 0].cpu()
+    sq = ScalarQuantizer.train(emb_g)
+    idx = FlatSQIndex(sq, mode="bf16")
+    idx.add(emb_g)
+    before = T.adc_segmin_cached.launches
+    d_f, i_f = idx.search_fast(emb_q, EMB_K)
+    torch.cuda.synchronize()
+    res["launches"] = T.adc_segmin_cached.launches - before
+    d_b, i_b = idx.search(emb_q, EMB_K)
+    for name, (d, i) in (("fast", (d_f, i_f)), ("bf16", (d_b, i_b))):
+        assert int(i.min()) >= 0 and int(i.max()) < len(gal), name
+        assert bool(torch.isfinite(d).all()), name
+        res[f"recall_at_1_{name}"] = recall_at_k(i, gt, k=1)
+        res[f"recall_at_10_{name}"] = recall_at_k(i, gt, k=10)
+        res[f"identity_recall_{name}"] = identity_recall(i, gal_ident,
+                                                         q_ident)
+    # parity at top-1, the fast path's exact rank: the gallery holds each
+    # identity's rows side by side, and for k > 1 the fast path keeps one
+    # winner per segment (adc_scan.py:27-32), which recall@10 shows
+    res["parity_pt"] = 100 * (res["recall_at_1_bf16"]
+                              - res["recall_at_1_fast"])
+    assert res["launches"] > 0, "the cached kernel never launched"
+    assert abs(res["parity_pt"]) <= ARC_GATES["parity_pt"], res
+    assert res["identity_recall_fast"] >= ARC_GATES["recall"], res
+    args = sq_kernel_args(idx, emb_q)
+    res["cmp"] = compare_kernel_to_twin(
+        T.adc_segmin_cached, T.adc_segmin_cached_plain, args,
+        args[3][:, 0], args[1], args[5], args[6])
+    res["fast_ms"] = cuda_median_ms(lambda: idx.search_fast(emb_q, EMB_K),
+                                    10)[0]
+    res["kernel_ms"] = cuda_median_ms(lambda: T.adc_segmin_cached(*args),
+                                      20)[0]
+    res["plain_ms"] = cuda_median_ms(
+        lambda: T.adc_segmin_cached_plain(*args), 3)[0]
+    res["bound"] = share(res["kernel_ms"], adc_bound(args, cached=True))
+    res["npad"], res["tile"], res["seg"] = args[2].shape[1], args[5], args[6]
+
+    # HNSW over the same embeddings (inner product, the reference's point)
+    q_np = emb_q.cpu().numpy()
+    hn = HnswIndex(ARC_EMB, metric="ip", capacity=len(gal), m=HNSW_M,
+                   ef_construction=HNSW_EFC, seed=SEED)
+    t0 = time.perf_counter()
+    hn.add(emb_np)
+    res["hnsw_emb_build_per_s"] = len(gal) / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    _, h_ids = hn.search(q_np, EMB_K, ef=HNSW_EF)
+    res["hnsw_emb_search_ms"] = (time.perf_counter() - t0) * 1e3
+    res["identity_recall_hnsw"] = identity_recall(h_ids, gal_ident, q_ident)
+    assert res["identity_recall_hnsw"] >= ARC_GATES["recall"], res
+
+    # HNSW (L2) over the first HNSW_N of the main path's base
+    base = base_dev[:HNSW_N]
+    qs = q_dev[:N_REC]
+    exact = FlatIndex(D, "l2", chunk=131_072, device=DEV)
+    exact.add(base)
+    gt10 = exact.search(qs, 10)[1].cpu().numpy()
+    del exact
+    hs = HnswIndex(D, metric="l2", capacity=HNSW_N, m=HNSW_M,
+                   ef_construction=HNSW_EFC, seed=SEED)
+    t0 = time.perf_counter()
+    hs.add(base.cpu().numpy())
+    res["hnsw_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, s_ids = hs.search(qs.cpu().numpy(), 10, ef=HNSW_EF)
+    res["hnsw_search_ms"] = (time.perf_counter() - t0) * 1e3
+    res["hnsw_recall_at_10"] = recall_at_k(s_ids, gt10[:, 0], k=10)
+    res["hnsw_recall_at_1"] = recall_at_k(s_ids, gt10[:, 0], k=1)
+    res["hnsw_10_at_10"] = recall_at_k(s_ids, gt10, k=10, gt_count=10)
+    assert res["hnsw_recall_at_10"] >= ARC_GATES["hnsw_recall10"], res
+
+    # the multi-device dry run on the 1-rank NCCL group
+    before = T.adc_segmin.launches
+    res["dryrun"], res["dryrun_s"] = timed(lambda: dryrun_multichip(
+        verbose=False))
+    res["dryrun_launches"] = T.adc_segmin.launches - before
+    dist.destroy_process_group()
+    return res
+
+
+def run_records_training(stamp: str, base_dev, q_dev) -> dict:
+    """Step 26 with its prints; the three kernels' counts are zeroed before
+    it and read after."""
+    import tempfile
+    zero_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        r, dt = timed(lambda: phase_records_training(tmp, base_dev, q_dev))
+    g = ARC_GATES
+    print(f"step 26 data: {ARC_IDS} identities x {ARC_PER} samples of "
+          f"{ARC_IN} (seeded on the card, {r['data_s']:.1f} s); "
+          f"RecordDataset.from_arrays {r['records_mb']:.0f} MB in "
+          f"{r['records_write_s']:.2f} s "
+          f"({r['records_mb'] / r['records_write_s']:.0f} MB/s) {stamp}")
+    print(f"ArcFace {ARC_IN} -> {ARC_EMB} x {ARC_CLASSES}, batch {ARC_B}, s "
+          f"{ARC_S}, m {ARC_M}: card vs CPU one step: loss {r['loss_card']:.6f}"
+          f" / {r['loss_cpu']:.6f}, gradients max|diff|/max|g| "
+          f"{r['grad_rel']:.3g} (limit {g['grad']}); CPU step "
+          f"{r['grad_cpu_s']:.1f} s {stamp}")
+    print(f"make_sharded_train_step on a 1-rank NCCL group vs train_step: "
+          f"loss equal {r['sharded_loss_equal']}, gradients max|diff| "
+          f"{r['sharded_grad_max']:.3g}, parameters after the step max|diff| "
+          f"{r['sharded_param_max']:.3g} {stamp}")
+    print(f"training: {r['steps']} steps ({ARC_EPOCHS} epochs of "
+          f"{ARC_IDS * ARC_TRAIN_PER} records): loss {r['loss_first']:.4f} -> "
+          f"{r['loss_last']:.4f} (ratio {r['loss_ratio']:.4g}, limit "
+          f"{g['loss_ratio']}); every 12th: {[round(v, 3) for v in r['losses']]}"
+          f" {stamp}")
+    q = r["step_ms_q"]
+    print(f"training step (CUDA events): median {r['step_ms_median']:.3f} ms, "
+          f"min {q[0]:.3f}, quartiles {q[1]:.3f}-{q[2]:.3f}, max {q[3]:.3f}; "
+          f"{r['roofline']} at the median, {r['fp32_share']:.1%} of the float32"
+          f" peak; host data {r['data_ms_median']:.2f} ms per batch "
+          f"({r['data_s_total']:.2f} s in all; the train file reads "
+          f"sequentially at {r['seq_read_mb_s']:.0f} MB/s); "
+          f"{r['samples_per_s']:.0f} samples/s end to end ({r['train_wall_s']:.2f} s); peak memory "
+          f"{r['peak_gb']:.3f} GB {stamp}")
+    print(f"Timer around one step: {r['timer_ms']:.3f} ms; profile.trace "
+          f"({r['trace_files']} trace file) of one step, top device "
+          f"operations (self ms, calls): " + "; ".join(
+              f"{name[:60]} {ms:.3f} ({n})" for name, ms, n in
+              r["profile_top"]) + f" {stamp}")
+    print(f"embed {ARC_IDS * (ARC_TRAIN_PER + 2)} samples in "
+          f"{r['embed_s']:.2f} s; same-identity recall@1 of the raw features "
+          f"{r['raw_recall_at_1']:.4f} {stamp}")
+    print(f"write_cvt_records (native) {r['cvtr_mb']:.1f} MB in "
+          f"{r['cvtr_write_s'] * 1e3:.1f} ms, Python loop "
+          f"{r['cvtr_write_py_s'] * 1e3:.1f} ms, bytes equal "
+          f"{r['cvtr_bytes_equal']}; read_cvt_records "
+          f"{r['cvtr_read_s'] * 1e3:.1f} ms, round trip equal {stamp}")
+    print(f"held-out same-identity recall@1: SQ search_fast "
+          f"{r['identity_recall_fast']:.4f}, bf16 "
+          f"{r['identity_recall_bf16']:.4f}, HNSW (ip, M {HNSW_M}, efC "
+          f"{HNSW_EFC}, ef {HNSW_EF}) {r['identity_recall_hnsw']:.4f} "
+          f"(limit {g['recall']}); SQ against the exact nearest: recall@1 "
+          f"fast {r['recall_at_1_fast']:.4f} / bf16 "
+          f"{r['recall_at_1_bf16']:.4f} (parity {r['parity_pt']:.2f} pt, "
+          f"limit {g['parity_pt']}), recall@10 {r['recall_at_10_fast']:.4f} "
+          f"/ {r['recall_at_10_bf16']:.4f}; "
+          f"search_fast {r['fast_ms']:.3f} ms; adc_segmin_cached launched "
+          f"{r['launches']} time(s) by the search {stamp}")
+    print_compare(f"records path's arguments, Npad={r['npad']} B={ARC_IDS} "
+                  f"D={ARC_EMB} tile {r['tile']} seg {r['seg']}",
+                  {"adc_segmin_cached": r["cmp"]}, stamp)
+    print(f"adc_segmin_cached at the records path: kernel "
+          f"{r['kernel_ms']:.4f} ms, twin {r['plain_ms']:.3f} ms {stamp}")
+    print_bound("adc_segmin_cached", f"the records path (Npad {r['npad']}, "
+                f"Bpad {ARC_IDS}, D {ARC_EMB}, tile {r['tile']}, seg "
+                f"{r['seg']})", r["bound"], stamp)
+    print(f"HNSW (ip) over {ARC_IDS * (ARC_TRAIN_PER + 1)} embeddings: build "
+          f"{r['hnsw_emb_build_per_s']:.0f} vectors/s, search {ARC_IDS} "
+          f"queries at ef {HNSW_EF} {r['hnsw_emb_search_ms']:.1f} ms {stamp}")
+    print(f"HNSW (l2, M {HNSW_M}, efC {HNSW_EFC}) over the first {HNSW_N} of "
+          f"the main path's base: build {r['hnsw_build_s']:.2f} s "
+          f"({HNSW_N / r['hnsw_build_s']:.0f} vectors/s); {N_REC} queries at "
+          f"ef {HNSW_EF} {r['hnsw_search_ms']:.1f} ms; recall@10 "
+          f"{r['hnsw_recall_at_10']:.4f} (limit {g['hnsw_recall10']}), "
+          f"recall@1 {r['hnsw_recall_at_1']:.4f}, 10@10 "
+          f"{r['hnsw_10_at_10']:.4f} against exact FlatIndex {stamp}")
+    d = r["dryrun"]
+    print(f"dryrun_multichip on a 1-rank NCCL group: mesh dp={d['dp']} x "
+          f"db={d['db']}, objective {d['objective']:.3f}, config-5 top-1 "
+          f"parity {d['agree']:.2f}, pipelined {d['agree_pipelined']:.2f}; "
+          f"{r['dryrun_s']:.1f} s, adc_segmin launched "
+          f"{r['dryrun_launches']} time(s) {stamp}")
+    launches = launch_counts()
+    print(f"launches during step 26: {launches} {stamp}")
+    assert launches["ivf_page"] == 0
+    assert launches["adc_segmin"] == r["dryrun_launches"] > 0, launches
+    assert launches["adc_segmin_cached"] >= r["launches"] > 0, launches
+    print(f"step 26 took {dt:.1f} s (target 90 s) {stamp}")
+    return r
+
 def print_compare(what: str, cmp: dict, stamp: str) -> None:
     for name, c in cmp.items():
         print(f"kernel vs twin, {what}: {name} max|diff| {c['max_abs_err']}"
@@ -3803,9 +4248,9 @@ def run_sq(base_dev, q_dev, stamp: str) -> dict:
     args = sq_kernel_args(idx["bf16"], xq)
     sq["cmp"] = compare_kernel_to_twin(
         T.adc_segmin_cached, T.adc_segmin_cached_plain, args,
-        args[3][:, 0], args[1], args[-1])
+        args[3][:, 0], args[1], args[5], args[6])
     print_compare(f"SQ path's arguments, Npad={args[2].shape[1]} "
-                  f"B={N_QUERIES} tile {args[-1]}",
+                  f"B={N_QUERIES} tile {args[5]}",
                   {"adc_segmin_cached": sq["cmp"]}, stamp)
     stm = phase_sq_timing(idx, xq, args, reps=5)
     for name in ("bf16", "int8", "fast"):
@@ -3817,7 +4262,7 @@ def run_sq(base_dev, q_dev, stamp: str) -> dict:
     sq["bound"] = share(stm["kernel_ms"], adc_bound(args, cached=True))
     print_bound("adc_segmin_cached", f"the SQ path (Npad "
                 f"{args[2].shape[1]}, Bpad {args[0].shape[0]}, tile "
-                f"{args[-1]})", sq["bound"], stamp)
+                f"{args[5]})", sq["bound"], stamp)
     return sq
 
 
@@ -3891,12 +4336,18 @@ def main() -> int:
     print(card)
     stamp = f"({card})"
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     assert torch.get_float32_matmul_precision() == "highest"
     assert not torch.backends.cuda.matmul.allow_tf32
+    # cuDNN's flag stays at PyTorch's default (TF32 allowed): every
+    # convolution of the port turns it off for its own call
+    # (ops.linalg.full_precision_conv), which steps 14-25 then check
+    conv = getattr(torch.backends.cudnn, "conv", None)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}")
+          f"{torch.cuda.get_device_name(0)}; cuDNN float32 convolutions "
+          f"at PyTorch's default: " + (
+              f"conv.fp32_precision {conv.fp32_precision!r}" if conv is not
+              None else f"allow_tf32 {torch.backends.cudnn.allow_tf32}"))
 
     stale = _build.library_path()
     if os.path.exists(stale):
@@ -4031,6 +4482,7 @@ def main() -> int:
     match = run_matching(stamp)
     recon = run_reconstruction(stamp, match)
     apps = run_apps(stamp)
+    arc = run_records_training(stamp, base_dev, q_dev)
     # last: the profiler leaves its hooks behind, which slows the host side
     # of whatever runs after it
     from cvt_tpu_torch.ops.kernels import adc_scan as T
@@ -4103,13 +4555,15 @@ def main() -> int:
                                   "bound_share")}
     kernels = [
         entry("adc_segmin", KERNEL_SRC, "cvt_tpu/ops/pallas/adc_scan.py:76",
-              res["launches"]["adc_segmin"] + sv["launches"],
+              res["launches"]["adc_segmin"] + sv["launches"]
+              + arc["dryrun_launches"],
               max(cmp["adc_segmin"]["max_abs_err"],
                   sv["cmp"]["max_abs_err"], *seg_err.values()),
               tm["adc_segmin_ms"], tm["adc_segmin_plain_ms"],
               flat_b["adc_segmin"],
               launches_by_path={"flat": res["launches"]["adc_segmin"],
-                                "serve": sv["launches"]},
+                                "serve": sv["launches"],
+                                "dryrun": arc["dryrun_launches"]},
               seg_variants_max_abs_err=seg_err,
               by_path={"flat": path(flat_b["adc_segmin"]),
                        "serve": path(sv["bound"])},
@@ -4117,18 +4571,23 @@ def main() -> int:
         entry("adc_segmin_cached", KERNEL_SRC,
               "cvt_tpu/ops/pallas/adc_scan.py:448",
               res["launches"]["adc_segmin_cached"] + sq["launches"]
-              + em["launches"],
+              + em["launches"] + arc["launches"],
               max(cmp["adc_segmin_cached"]["max_abs_err"],
-                  sq["cmp"]["max_abs_err"], em["cmp"]["max_abs_err"]),
+                  sq["cmp"]["max_abs_err"], em["cmp"]["max_abs_err"],
+                  arc["cmp"]["max_abs_err"]),
               tm["adc_segmin_cached_ms"], tm["adc_segmin_cached_plain_ms"],
               flat_b["adc_segmin_cached"],
               launches_by_path={"flat": res["launches"]["adc_segmin_cached"],
                                 "sq": sq["launches"],
-                                "embeddings": em["launches"]},
+                                "embeddings": em["launches"],
+                                "records": arc["launches"]},
               by_path={"flat": path(flat_b["adc_segmin_cached"]),
                        "sq": path(sq["bound"]),
                        "embeddings": dict(path(em["bound"]),
-                                          plain_ms=em["plain_ms"])},
+                                          plain_ms=em["plain_ms"]),
+                       "records": dict(path(arc["bound"]),
+                                       plain_ms=arc["plain_ms"],
+                                       seg=arc["seg"])},
               split_ms=split["adc_segmin_cached"],
               sass=sass_of("adc_segmin_cached_kernel")),
         entry("ivf_page", IVF_SRC, "cvt_tpu/ops/pallas/ivf_scan.py:82",

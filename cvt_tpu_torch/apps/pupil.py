@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from cvt_tpu_torch.match.ransac import progressive_minimal_samples
+from cvt_tpu_torch.ops.linalg import full_precision_conv
 from cvt_tpu_torch.ops.topk import top_k_largest
 from cvt_tpu_torch.utils.device import resolve_device
 
@@ -79,8 +80,9 @@ def remove_specular(images, *, thresh: float = 0.9, blur: int = 7,
     k = torch.full((1, 1, blur, blur), 1.0 / (blur * blur),
                    dtype=torch.float32, device=x.device)
     lo = (blur - 1) // 2                               # XLA's "SAME"
-    sm = F.conv2d(F.pad(x[:, None], (lo, blur - 1 - lo, lo, blur - 1 - lo)),
-                  k)[:, 0]
+    with full_precision_conv():
+        sm = F.conv2d(F.pad(x[:, None],
+                            (lo, blur - 1 - lo, lo, blur - 1 - lo)), k)[:, 0]
     return torch.where(x > thresh, sm, x)
 
 

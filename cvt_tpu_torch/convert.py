@@ -140,3 +140,18 @@ def embedding_from_numpy(conv_ws, head, input_size: int = 224,
     return EmbeddingExtractor._from_weights(
         [np.array(w, np.float32) for w in conv_ws],
         np.array(head, np.float32), input_size=input_size, device=device)
+
+
+def arcface_from_numpy(params, device=None) -> dict:
+    """`cvt_tpu`'s ArcFace parameters ({'layers': [{'w': [din, dout],
+    'b': [dout]}, ...], 'head': [E, C]}, e.g. `jax.tree.map(np.asarray,
+    state.params)`) -> the port's parameter dict, the same layout (used as
+    `x @ w + b`), float32 on `device`. `train.state_from_params` makes a
+    training state of it."""
+    dev = resolve_device(device)
+
+    def put(a):
+        return torch.tensor(np.array(a, np.float32), device=dev)
+    return {"layers": [{"w": put(lyr["w"]), "b": put(lyr["b"])}
+                       for lyr in params["layers"]],
+            "head": put(params["head"])}

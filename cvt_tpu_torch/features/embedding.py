@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cvt_tpu_torch.ops.linalg import l2_normalize
+from cvt_tpu_torch.ops.linalg import full_precision_conv, l2_normalize
 from cvt_tpu_torch.ops.resize import resize_linear
 from cvt_tpu_torch.utils.device import resolve_device
 
@@ -69,7 +69,9 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """x [B, C, H, W], w [O, I, kh, kw] -> "SAME" convolution (NCHW)."""
     top, bottom = _same_pad(x.shape[2], w.shape[2], stride)
     left, right = _same_pad(x.shape[3], w.shape[3], stride)
-    return F.conv2d(F.pad(x, (left, right, top, bottom)), w, stride=stride)
+    with full_precision_conv():
+        return F.conv2d(F.pad(x, (left, right, top, bottom)), w,
+                        stride=stride)
 
 
 def _init_simple_cnn(gen: torch.Generator, dim: int, channels=CHANNELS):

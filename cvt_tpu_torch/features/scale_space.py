@@ -14,7 +14,6 @@ default, and its 10-bit mantissa would move the DoG extrema.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import NamedTuple
 
@@ -22,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cvt_tpu_torch.ops.linalg import full_precision_conv
 from cvt_tpu_torch.utils.device import resolve_device
 
 
@@ -38,16 +38,6 @@ class OctavePyramid(NamedTuple):
     sigmas: tuple  # per-level absolute sigma in input-image pixels
 
 
-@contextlib.contextmanager
-def _full_precision_conv():
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
 def _gauss_kernel1d(sigma: float) -> np.ndarray:
     r = max(1, int(math.ceil(4.0 * sigma)))
     x = np.arange(-r, r + 1, dtype=np.float64)
@@ -62,7 +52,7 @@ def _blur(x: torch.Tensor, sigma: float) -> torch.Tensor:
     k = torch.from_numpy(_gauss_kernel1d(sigma)).to(x.device)
     r = (k.numel() - 1) // 2
     x4 = x[:, None]                                              # [B,1,H,W]
-    with _full_precision_conv():
+    with full_precision_conv():
         x4 = F.conv2d(F.pad(x4, (r, r, 0, 0), mode="replicate"),
                       k.reshape(1, 1, 1, -1))
         x4 = F.conv2d(F.pad(x4, (0, 0, r, r), mode="replicate"),

@@ -1,14 +1,17 @@
 """Host-side native (C++) components of the port, built by path.
 
 The device work is PyTorch and the CUDA kernels of `csrc/`; this package
-holds the host-side C++ pieces the reference implements natively —
-currently the in-memory video decoder (`ffdecode.cc`, a copy of
-`cvt_tpu`'s, libav*). `load_library(name)` compiles `<name>.cc` from this
-directory with g++ (or $CXX) into `cvt_tpu_torch/_build/lib<name>.so`
+holds the host-side C++ pieces the reference implements natively, each
+a copy of `cvt_tpu`'s: the in-memory video decoder (`ffdecode.cc`,
+libav*), the HNSW graph index (`hnsw.cc`, OpenMP) and the cvt record
+stream reader / writer (`vecs_io.cc`). `load_library(name)` compiles
+`<name>.cc` from this directory with $CXX (default g++), or with g++
+where a $CXX that exists fails, into `cvt_tpu_torch/_build/lib<name>.so`
 (git-ignored) on first use, again whenever the source is newer than the
-library, and loads it with ctypes. A missing compiler, header or library
-raises `NativeBuildError`; callers decide what to do without the
-component (`io/video.VideoReader` then tries cv2).
+library, and loads it with ctypes. A missing compiler, header or library raises
+`NativeBuildError`; callers decide what to do without the component
+(`io/video.VideoReader` then tries cv2, `io/vecs` the Python loop,
+`index/hnsw` raises).
 """
 
 from __future__ import annotations
@@ -46,20 +49,25 @@ def build(name: str) -> str:
     out = os.path.join(BUILD_DIR, f"lib{name}.so")
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         return out
+    # $CXX first, then g++: a $CXX set for other builds may lack what
+    # these flags need (OpenMP's spec file, for one)
     cxx = os.environ.get("CXX", "g++")
     if shutil.which(cxx) is None:
         raise NativeBuildError(f"C++ compiler {cxx!r} not found: cannot "
                                f"build {name}")
+    compilers = [c for c in dict.fromkeys((cxx, "g++")) if shutil.which(c)]
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [cxx, *CXXFLAGS, "-o", tmp, src, *EXTRA_FLAGS.get(name, ())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise NativeBuildError(
-            f"native build of {name} failed (missing headers or "
-            f"libraries?): {' '.join(cmd)}\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return out
+    errors = []
+    for cxx in compilers:
+        cmd = [cxx, *CXXFLAGS, "-o", tmp, src, *EXTRA_FLAGS.get(name, ())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+            return out
+        errors.append(f"{' '.join(cmd)}\n{proc.stderr[-2000:]}")
+    raise NativeBuildError(f"native build of {name} failed (missing "
+                           f"headers or libraries?): " + "\n".join(errors))
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -488,21 +488,34 @@ def adc_search(q, q_sq, codes, dec_sq, codebooks, k: int, n_valid: int, *,
                              k, n_valid, tile_n, slack)
 
 
+def cached_seg(d: int) -> int:
+    """Segment of the decoded-cache scan at width d: SEG, `cvt_tpu`'s,
+    whose int32 keys have headroom up to d 346; above that halved until
+    they do (64 up to d 693, 32 beyond), where `cvt_tpu` raises."""
+    seg = SEG
+    while seg > SEGS[-1] and (2 ** 31) // seg - 3 * 127 * 127 * d \
+            - 2 * seg <= 0:
+        seg //= 2
+    return seg
+
+
 def adc_search_cached(q, dec8_t, norm_col, srow, k: int, n_valid: int,
                       tile_n: int | None = None):
     """Fast search over the int8 decoded cache (decode-free scan).
 
     q [B, D] rotated space; dec8_t [D, Npad] int8; norm_col [Npad, 1] f32
-    quantized-space row norms; srow the per-dim dequant scales.
+    quantized-space row norms; srow the per-dim dequant scales. The
+    segment is `cached_seg(D)`.
     """
     npad = dec8_t.shape[1]
     tile_n = cached_tile_n(npad) if tile_n is None else tile_n
+    seg = cached_seg(dec8_t.shape[0])
     q = q.float()
     q_sq = torch.sum(q * q, dim=-1)
     # the cached path has the norms in hand: clamp qs below max(norm)/vcap
-    vcap, _ = _pack_caps(SEG, dec8_t.shape[0])
+    vcap, _ = _pack_caps(seg, dec8_t.shape[0])
     q2s, qs = _fold_queries(q, srow, torch.amax(norm_col), vcap)
     segpack, tiletop = adc_segmin_cached(q2s, qs, dec8_t, norm_col,
-                                         n_valid, tile_n)
+                                         n_valid, tile_n, seg)
     return _select_tiletop(segpack, tiletop, qs, q_sq, q.shape[0], k,
-                           tile_n, SEG, n_valid)
+                           tile_n, seg, n_valid)

@@ -4,13 +4,42 @@ Counterpart of `cvt_tpu.ops.linalg`: the whole distance scan is one
 matrix product `[B, D] x [D, N]` via the `||q||^2 - 2<q, x> + ||x||^2`
 expansion. float32 products run at full precision only while TF32 is off
 (`torch.backends.cuda.matmul.allow_tf32`, PyTorch's default).
+float32 convolutions go through cuDNN, which allows TF32 by default: every
+`F.conv2d` of the port runs under `full_precision_conv()`.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 EPS = 1e-12  # matches cvt math_util.h:21 epsilon guard
+
+
+@contextlib.contextmanager
+def full_precision_conv():
+    """Run cuDNN's float32 convolutions in full float32 (no TF32) inside
+    the block; the caller's setting comes back on exit, also on an
+    exception. Takes the per-operator flag
+    (`torch.backends.cudnn.conv.fp32_precision`) where the installed torch
+    has it, the legacy `torch.backends.cudnn.allow_tf32` only where it
+    does not, so the two APIs never meet on one flag."""
+    conv = getattr(torch.backends.cudnn, "conv", None)
+    if conv is not None and hasattr(conv, "fp32_precision"):
+        prev = conv.fp32_precision
+        conv.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            conv.fp32_precision = prev
+        return
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,

@@ -21,6 +21,8 @@ from cvt_tpu_torch.index import FlatADCIndex, FlatIndex, IVFADCIndex
 from cvt_tpu_torch.ops.kmeans import kmeans
 from cvt_tpu_torch.parallel import init_distributed
 from cvt_tpu_torch.quant import OPQ, PCA, ProductQuantizer, ScalarQuantizer
+from cvt_tpu_torch.train import (create_state, make_sharded_train_step,
+                                 state_from_params)
 from cvt_tpu_torch.utils import resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -29,6 +31,8 @@ CB = RNG.normal(size=(4, 16, 8)).astype(np.float32)     # M 4, K 16, D 32
 ROT = np.linalg.qr(RNG.normal(size=(32, 32)))[0].astype(np.float32)
 X = RNG.normal(size=(64, 32)).astype(np.float32)
 IMG = RNG.random((1, 40, 48)).astype(np.float32)
+ARC = {"layers": [{"w": X[:32, :4], "b": np.zeros(4, np.float32)}],
+       "head": X[:4, :3]}
 
 
 @pytest.fixture
@@ -66,6 +70,10 @@ ENTRY_POINTS = {
     "ImageRetrievalIndex": lambda p, dev: ImageRetrievalIndex(device=dev),
     "FeatureExtractionPipeline": lambda p, dev: FeatureExtractionPipeline(
         None, device=dev).extract_fn(IMG),
+    "create_state": lambda p, dev: create_state(
+        0, dim_in=32, num_classes=3, dim_emb=4, device=dev)[0].params["head"],
+    "arcface_from_numpy": lambda p, dev: convert.arcface_from_numpy(
+        ARC, device=dev)["head"],
 }
 
 
@@ -122,6 +130,24 @@ def test_loaded_index_searches_where_asked(no_card, pack):
 def test_init_distributed_without_card_raises(no_card):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         init_distributed()
+
+
+def test_sharded_train_step_follows_device_rule(no_card):
+    """Without a mesh, make_sharded_train_step starts a 1-rank group: NCCL
+    on the card (raises here), gloo with device="cpu"."""
+    import torch.distributed as dist
+    state, opt = state_from_params(convert.arcface_from_numpy(
+        ARC, device="cpu"))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_sharded_train_step(None, opt)
+    assert not dist.is_initialized()
+    try:
+        step = make_sharded_train_step(None, opt, device="cpu")
+        assert dist.get_backend() == "gloo"
+        state, loss = step(state, X[:8], np.arange(8) % 3)
+        assert loss.device == torch.device("cpu") and state.step == 1
+    finally:
+        dist.destroy_process_group()
 
 
 def test_cli_serve_without_device_cpu_fails(pack, tmp_path):

@@ -216,6 +216,28 @@ def test_search_fast_own_cache(data):
     assert p._dec8_n == N + 5 and p._dec8_t.shape[1] == 5120
 
 
+def test_search_fast_wide_vectors():
+    """Above d 346 the packed int32 keys of seg 128 overflow: cvt_tpu's
+    search_fast raises there, the port halves the segment (64 at d 512)
+    and its top-1 equals the bf16 engine's on the same index."""
+    rng = np.random.default_rng(12)
+    base = rng.normal(size=(2048, 512)).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    q = base[:32] + 0.05 * rng.normal(size=(32, 512)).astype(np.float32)
+    jidx = JFlatSQ(JSQ.train(base, l2norm=False), chunk=1024)
+    jidx.add(base)
+    with pytest.raises(ValueError, match="infeasible"):
+        jidx.search_fast(q, 5)
+    assert [T.cached_seg(d) for d in (64, 346, 347, 693, 694)] == [
+        128, 128, 64, 64, 32]
+    idx = FlatSQIndex(ScalarQuantizer.train(base, device="cpu"))
+    idx.add(base)
+    _, i_fast = idx.search_fast(q, 5)
+    _, i_bf16 = idx.search(q, 5)
+    np.testing.assert_array_equal(i_fast[:, 0].numpy(), i_bf16[:, 0].numpy())
+    np.testing.assert_array_equal(i_fast[:, 0].numpy(), np.arange(32))
+
+
 def test_flat_sq_save_load_both_ways(data, tmp_path):
     _, q, _, jidx = data
     p = _carry(jidx)
