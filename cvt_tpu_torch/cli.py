@@ -23,6 +23,11 @@ Commands:
                         remove images from a saved reconstruction (or a
                         feature database) by name / id or by observations
   serve                 sharded query server over a saved flat ADC index
+  bench                 the north-star benchmark (cvt_tpu_torch.bench):
+                        flat ADC QPS at recall parity, encode rates, the
+                        SQ lane and the parity sweep, a JSON line per lane
+                        (sizes: bench.py's, or BENCH_N, BENCH_BATCH,
+                        BENCH_ITERS, BENCH_NREC)
 
 Flags, outputs and printed lines are `cvt_tpu.cli`'s, and the files each
 command reads or writes are interchangeable with it. Every command but
@@ -548,6 +553,11 @@ def _cmd_serve(args):
             _print_rows(d.cpu(), i.cpu())
 
 
+def _cmd_bench(args):
+    from cvt_tpu_torch.bench import main as bench_main
+    bench_main(args.device)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="cvt_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -722,6 +732,8 @@ def main(argv=None):
     g.add_argument("--merge", default="allgather",
                    choices=["allgather", "ring"])
     g.add_argument("--max-wait-ms", type=float, default=5.0)
+
+    parser("bench", _cmd_bench)
 
     args = p.parse_args(argv)
     import torch.distributed as dist

@@ -16,9 +16,15 @@ What differs from `cvt_tpu`:
     uint32 word 0, bits 32-63 its word 1 (`save`, `load` and
     `convert.vocab_he_from_numpy` convert to and from [..., 2] uint32),
     counted by `ops/bits.py`'s byte table (torch has no popcount);
-  * image scores are float32 scatter-adds (`index_add_`); on the card
-    their summation order is the atomics', not XLA's, so scores agree to
-    a tolerance and ids where neighbouring scores are further apart;
+  * image scores are scatter-adds (`index_add_`) of float32 terms into a
+    float64 buffer, rounded to float32 once at the end. On the card the
+    atomics add in whatever order they land; with float64 partial sums
+    the rounded result is the same on every run, and the same as the
+    CPU's sum of the same terms, bar a sum within ~1e-13 of a float32
+    rounding boundary. (The self-similarities are `torch.sum`
+    reductions, whose order is fixed on each device.) Against
+    `cvt_tpu`'s float32 sums in XLA's order, scores agree to a tolerance
+    and ids where neighbouring scores are further apart;
   * `train` draws its vocabulary seeds and its HE projection from a CPU
     `torch.Generator`, so a trained index differs from `cvt_tpu`'s for the
     same seed; the host-side layout (medians, buckets, tail, idf,
@@ -70,9 +76,10 @@ def _score_query_many(q_words, q_sigs, q_valid, buckets_img, buckets_sig,
     w = _he_weight(h) * idf_q2 * buckets_burst[wq]
     w = torch.where((b_img >= 0) & q_valid[..., None], w, 0.0)
     base = (torch.arange(q, device=w.device) * n_images)[:, None, None]
-    scores = torch.zeros(q * n_images, dtype=torch.float32, device=w.device)
+    # float64 partial sums: the atomics' order cannot move the float32 result
+    scores = torch.zeros(q * n_images, dtype=torch.float64, device=w.device)
     scores.index_add_(0, (base + torch.clamp_min(b_img, 0)).reshape(-1),
-                      w.reshape(-1))
+                      w.reshape(-1).double())
     for lo in range(0, tail_word.shape[0], tail_tc):
         tw_w, tw_i = tail_word[lo:lo + tail_tc], tail_img[lo:lo + tail_tc]
         th = _hamming(q_sigs[..., None], tail_sig[lo:lo + tail_tc])
@@ -81,8 +88,8 @@ def _score_query_many(q_words, q_sigs, q_valid, buckets_img, buckets_sig,
                 & q_valid[..., None])                     # [Q, Kq, Tc]
         tw = torch.where(keep, tw, 0.0)
         t_img = (base + torch.clamp_min(tw_i, 0)).expand(tw.shape)
-        scores.index_add_(0, t_img.reshape(-1), tw.reshape(-1))
-    return scores.reshape(q, n_images)
+        scores.index_add_(0, t_img.reshape(-1), tw.reshape(-1).double())
+    return scores.float().reshape(q, n_images)
 
 
 def _score_one(q_words, q_sigs, q_valid, buckets_img, buckets_sig,

@@ -453,3 +453,15 @@ def test_logo_pack_loads_where_asked(no_card, tmp_path):
     from cvt_tpu_torch.apps.detect import decode_fastestdet
     assert decode_fastestdet(torch.from_numpy(_HEAD), max_dets=4
                              ).scores.device == torch.device("cpu")
+
+
+def test_bench_without_card_raises(no_card, capsys):
+    """The benchmark runs on the card: without one, `cli bench` and
+    `bench.main()` raise before any lane runs (no line printed)."""
+    from cvt_tpu_torch import bench
+    from cvt_tpu_torch.cli import main
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        main(["bench"])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        bench.main()
+    assert capsys.readouterr().out == ""

@@ -141,7 +141,7 @@ def test_package_imports_without_jax():
                                  for m in _modules(cvt_tpu_torch)]
     for must in ("cvt_tpu_torch.train", "cvt_tpu_torch.index.hnsw",
                  "cvt_tpu_torch.parallel.dryrun", "cvt_tpu_torch.config",
-                 "cvt_tpu_torch.utils.profile"):
+                 "cvt_tpu_torch.utils.profile", "cvt_tpu_torch.bench"):
         assert must in names
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'optax', 'cvt_tpu'):\n"

@@ -7,9 +7,11 @@ import). Needs no JAX:
 
 Tolerances: the top-k bitwise against the stable sort (values and ids).
 VocabHEIndex on the card against the same index on the CPU: scores rtol
-1e-5 (float32 sums, atomics on the card), ids equal except where a score
-lies within that of its neighbour's; word ids and signatures equal except
-counted near-ties of the float32 products (at most 1 in 500).
+1e-5, ids equal except where a score lies within that of its neighbour's;
+word ids and signatures equal except counted near-ties of the float32
+products (at most 1 in 500). The scoring pass on the same words: card
+against CPU rtol 1e-6 (float64 partial sums of terms whose float32 exp
+may round apart), and the card's scores bitwise equal over 20 calls.
 """
 
 import numpy as np
@@ -119,3 +121,41 @@ def test_vocab_he_card_matches_cpu(card, tmp_path, hierarchical, probes):
         assert torch.equal(getattr(gpu2, name).cpu(), getattr(cpu, name))
     torch.testing.assert_close(gpu2._self_norm.cpu(), cpu._self_norm,
                                rtol=RTOL, atol=0)
+
+
+def test_vocab_he_card_scores_repeat_bitwise(card, tmp_path):
+    """Scores are float64 sums rounded once (`_score_query_many`), so the
+    order in which the card's atomics land cannot move them: 20 calls of
+    query_batch give the same scores bitwise. The same index saved and
+    loaded on the CPU ranks as the card; on the same words and signatures
+    the scoring passes differ only by the per-term float32 rounding of
+    exp on each device."""
+    from cvt_tpu_torch.index import vocab_he as tv
+    train, images, geoms, queries = _corpus()
+    gpu = VocabHEIndex(n_words=256, hierarchical=False, probes=8,
+                       bucket_cap=8, device=card)
+    gpu.train(torch.Generator().manual_seed(0), train, iters=8)
+    for i, d in enumerate(images):
+        gpu.add_image(d, name=f"im{i}", geometries=geoms[i])
+    gpu.prepare()
+    assert gpu.n_overflow > 0                  # the tail pass has work
+    ids0, sc0, _ = gpu.query_batch(queries, topk=6)
+    for _ in range(19):
+        ids, sc, _ = gpu.query_batch(queries, topk=6)
+        np.testing.assert_array_equal(sc, sc0)
+        np.testing.assert_array_equal(ids, ids0)
+    path = str(tmp_path / "v.npz")
+    gpu.save(path)
+    cpu = VocabHEIndex.load(path, device="cpu")
+    ids_c, sc_c, _ = cpu.query_batch(queries, topk=6)
+    _agree(ids0, sc0, ids_c, sc_c)
+    words, sigs = cpu._encode(queries.reshape(-1, 128))
+    words, sigs = words.reshape(len(queries), -1), sigs.reshape(
+        len(queries), -1)
+    valid = torch.ones(words.shape, dtype=torch.bool)
+    raw_c = tv._score_query_many(words, sigs, valid, *cpu._layout(),
+                                 cpu.n_images)
+    raw_g = tv._score_query_many(words.to(card), sigs.to(card),
+                                 valid.to(card), *gpu._layout(),
+                                 gpu.n_images)
+    torch.testing.assert_close(raw_g.cpu(), raw_c, rtol=1e-6, atol=0)
