@@ -126,8 +126,8 @@
    bilinear resampling, gain, offset, noise) searched with rerank None /
    svf / ransac, topk 10. Asserts: ids in range, finite scores, recall@1
    of the source image >= 0.90 with svf; an index on the CPU holding the
-   card's features ranks 4 queries as the card (the near-tie rule of step
-   12). Then VocabHEIndex (W 65,536, hierarchical 256 x 256, trained on
+   card's features ranks 2 queries as the card (the near-tie rule of step
+   12; 2, not 4, to keep the script within its time limit). Then VocabHEIndex (W 65,536, hierarchical 256 x 256, trained on
    400,000 of the corpus's descriptors, iters 10) over the same images,
    query_batch for the 64 views at probes 2 / 8 / exact and probes 8 with
    verify 10 (gate: ids in range, finite scores). Times: extraction
@@ -266,6 +266,38 @@
    sweep's first point (131,072 rows, B 2,048); their errors join the
    two kernels' max_abs_err.
 
+28. The repository's seven workload suites as users run them, each
+   `python -m cvt_tpu_torch.benches.<name>` as a subprocess on the card
+   emptied again (SUITE_RUNS, in this order): ivf (IVF-ADC at coarseK
+   8192, m 16, B 256, nprobe 8 / 16 / 64 against the flat m-16 scan and
+   search()), serve (MultiHostADCServer at B 8,192 over 1M codes), dogfood
+   all (a 1M-descriptor extract_sift corpus, then config-1 / config-2
+   parity on it), vocab5 AB (warped mosaic queries at W 65,536; W
+   1,048,576 on the dogfood corpus), vocab, features (the extraction
+   sweep, matching at K 8,192, two-view verification) and hnsw (125,402,
+   M 32, efC 80). Cuts, for the time limit: ivf at N 1M only (its suite
+   adds 10M), vocab at VOCAB_BENCH_SMALL (W 4,096; its suite's full size
+   is W 1,048,576). Gates on each last line (SUITE_GATES): the device
+   line equals this card's and every number is finite; ivf: `ivf_page`
+   and `adc_segmin` launched, no page dropped, ids in [0, N) or -1,
+   |recall@10(search_fast) - recall@10(search())| <= 1.0 pt at nprobe
+   16; serve: top-1 agreement with the direct search >= 99%, |recall@1
+   parity| <= 1.0 pt against the reference engine; dogfood: both ADC
+   kernels launched, |parity| <= 1.0 pt, exact recall@1 >= fast - 0.5
+   pt; vocab5: recall@1 at probes 8 + verify >= without; vocab:
+   agreement at probes 16 >= at 8; features: > 500 keypoints per image
+   at K 2,048; hnsw: recall@10 >= 0.90 at ef 80. Every kernel lane of a
+   suite holds its kernel against the twin on the arguments the suite's
+   own index hands the wrapper, by this script's rules below, and stops
+   the suite on a difference: `ivf_page` at every nprobe with its n_live
+   and `adc_segmin` at the flat lane's m 16 (8-d subvectors), B 256 (ivf
+   at N 1M); `adc_segmin` at the server's 1M x 8,192 (serve); both ADC
+   kernels at Bpad 2,048 over the 1M corpus (dogfood). Each lane's
+   result is printed here (`suite_twins`) and joins its kernel's
+   max_abs_err. The suites' launches join the kernels line under
+   launches_by_path["suite_<name>"], their kernel times beside their
+   bounds under by_path["suite_..."].
+
 Every ADC kernel-against-twin check demands segpack and tiletop bitwise
 equal, except that a row whose norm/qs lies within 1e-4 of a half-integer
 may move its key by seg (float32 summation order); such rows are counted
@@ -288,7 +320,9 @@ import time
 import numpy as np
 import torch
 
-from cvt_tpu_torch.ops.kernels import launch_counts, zero_launch_counts
+from cvt_tpu_torch.ops.kernels import (compare_ivf_kernel,
+                                       compare_kernel_to_twin, launch_counts,
+                                       recorded_args, zero_launch_counts)
 from cvt_tpu_torch.utils.profile import (adc_bound, card_line, ivf_bound,
                                          live_slots)
 
@@ -322,9 +356,10 @@ FEAT_OPTS = dict(first_octave=-1, n_scales=3, peak_threshold=0.02 / 3,
                  edge_threshold=10.0, n_orientations=2, rootsift=True)
 FEAT_CPU_B, FEAT_CPU_H, FEAT_CPU_W, FEAT_CPU_K = 2, 240, 320, 1024
 # retrieval over extracted features: 512 images at K 2,048, 64 views of
-# every 8th, the app's defaults (topk 10, rerank depth 10)
+# every 8th, the app's defaults (topk 10, rerank depth 10); 2 queries on
+# the CPU (~15 s each), a cut of depth for the time limit
 RET_IMAGES, RET_K, RET_B, RET_EVERY, RET_TOPK, RET_CPU_Q = 512, 2048, 16, \
-    8, 10, 4
+    8, 10, 2
 RET_RERANKS = (None, "svf", "ransac")
 FEAT_CLI_IMAGES, FEAT_CLI_Q = 16, 4
 # the matching front end (steps 17-18): K 8,192 is COLMAP's
@@ -423,6 +458,21 @@ BENCH_KEYS = (
     "bound_share", "value_spread", "qps_decoded_cache_spread",
     "qps_exact_spread", "sq_d64_qps_spread", "sq_d128_qps_spread",
     "ingest_codes_per_sec_u8_spread", "device", "kernel_launches")
+# step 28: the seven workload suites (cvt_tpu_torch/benches, the ports of
+# the top-level _bench_*.py scripts), each a subprocess, in this order.
+# Cuts for the time limit: ivf at N 1M only (IVF_BENCH_N; the suite's own
+# N_LIST adds 10M), vocab at VOCAB_BENCH_SMALL (W 4,096; its full size is
+# W 1,048,576). Gates: step 7's and step 9's 1.0 pt parity, 99% top-1
+# agreement of serve with the direct search, exact recall@1 no more than
+# 0.5 pt under the fast path's (step 27), > 500 keypoints per image at K
+# 2,048, HNSW recall@10 >= 0.90 at ef 80 (step 26's bar)
+SUITE_RUNS = (("ivf", (), {"IVF_BENCH_N": "1000000"}), ("serve", (), {}),
+              ("dogfood", ("all",), {}), ("vocab5", ("AB",), {}),
+              ("vocab", (), {"VOCAB_BENCH_SMALL": "1"}), ("features", (), {}),
+              ("hnsw", (), {}))
+SUITE_TIMEOUT_S = 400
+SUITE_GATES = dict(parity_pt=1.0, agree=0.99, exact_pt=0.5, keypoints=500,
+                   hnsw_ef=80, hnsw_recall10=0.90)
 # H100 SXM data sheet: float32 outside the tensor cores (TF32 is off)
 PEAK_FP32_FLOPS = 67e12
 SASS_CLASSES = ("IMMA", "IGMMA", "IDP4A")
@@ -567,33 +617,6 @@ def main_path_kernel_args(idx, q_dev):
     cached_args = (q2s_c, qs_c, idx._dec8_t, idx._norm_col, n,
                    T.cached_tile_n(idx._dec8_t.shape[1]))
     return dec_args, cached_args
-
-
-def compare_kernel_to_twin(kernel, twin, args, norm, qs, tile_n,
-                           seg: int = 128) -> dict:
-    """Run a kernel and its twin on the same arguments. Differences are
-    allowed only in segments (and tiles) holding a row whose norm/qs lies
-    within 1e-4 of a half-integer, and a segment minimum may move by at
-    most seg; anything else raises."""
-    r = norm.double() / float(qs)
-    near_half = torch.nonzero((r - torch.floor(r) - 0.5).abs() < 1e-4)[:, 0]
-    got = kernel(*args)
-    want = twin(*args)
-    max_err, n_diff = 0, 0
-    for a, b, rows in zip(got, want, (seg, tile_n)):
-        allowed = torch.zeros(a.shape[0], dtype=torch.bool, device=a.device)
-        allowed[near_half // rows] = True
-        diff = (a.long() - b.long()).abs()
-        bad = diff.flatten(1).amax(1) > 0
-        n_diff += int(bad.sum())
-        if bool((bad & ~allowed).any()):
-            raise AssertionError(f"{kernel.__name__}: kernel differs from "
-                                 f"its twin outside near-half rows")
-        max_err = max(max_err, int(diff.max()))
-    if int((got[0].long() - want[0].long()).abs().max()) > seg:
-        raise AssertionError(f"{kernel.__name__}: segpack off by > seg")
-    return {"near_half_rows": int(near_half.numel()), "max_abs_err": max_err,
-            "rows_differ": n_diff}
 
 
 def compare_both(dec_args, cached_args, dec_norm) -> dict:
@@ -775,19 +798,6 @@ def random_ivf_args(d: int, b: int, seed: int = SEED):
     return [x.to(DEV) for x in (q2s, qs, dec8_t, nrm, cip, sel)] + [lp, 32]
 
 
-def compare_ivf_kernel(args) -> dict:
-    """The ivf_page kernel against its twin on the same arguments:
-    bitwise, or raise."""
-    from cvt_tpu_torch.ops.kernels import ivf_scan as V
-    got = V.ivf_pages_segmin(*args)
-    want = V.ivf_pages_segmin_plain(*args)
-    err = int((got.long() - want.long()).abs().max())
-    if err:
-        raise AssertionError(f"ivf_page kernel differs from its twin by "
-                             f"{err}")
-    return {"max_abs_err": err, "shape": list(got.shape)}
-
-
 def ivf_batches(idx, q_dev, fn):
     """fn(idx, batch) over the first N_REC queries in batches of IVF_B;
     the results concatenated."""
@@ -863,21 +873,9 @@ def phase_ivf(base_dev, q_dev, gt) -> dict:
 
 def main_path_ivf_args(idx, q_dev, nprobe: int = IVF_REF_NPROBE):
     """The ivf_page kernel's arguments (n_live included) in one search_fast
-    batch at nprobe, recorded where the wrapper validates them before its
-    launch."""
-    from cvt_tpu_torch.ops.kernels import ivf_scan as V
-    seen = []
-    check = V._check_launch
-
-    def record(*args):
-        seen.append(args)
-        check(*args)
-    V._check_launch = record
-    try:
-        idx.search_fast(q_dev[:IVF_B], K, nprobe=nprobe)
-    finally:
-        V._check_launch = check
-    return list(seen[0])
+    batch at nprobe, as the wrapper receives them."""
+    return list(recorded_args("ivf_page", lambda: idx.search_fast(
+        q_dev[:IVF_B], K, nprobe=nprobe)))
 
 
 def phase_ivf_timing(idx, q_dev, args_by_nprobe, reps: int) -> dict:
@@ -1591,7 +1589,7 @@ def names_to_ids(names) -> list:
 def phase_retrieval(stamp: str) -> dict:
     """Step 15: ImageRetrievalIndex over 512 extracted images, queried
     with 64 re-rendered views in each rerank mode; the CPU against the
-    card on 4 queries; VocabHEIndex on the same features."""
+    card on RET_CPU_Q queries; VocabHEIndex on the same features."""
     from cvt_tpu_torch.apps import ImageRetrievalIndex
     from cvt_tpu_torch.features import extract_sift
     from cvt_tpu_torch.index import VocabHEIndex
@@ -1648,7 +1646,8 @@ def phase_retrieval(stamp: str) -> dict:
             "_ids": ids, "_scores": [sc for _, sc in out]}
     assert res["modes"]["svf"]["recall_at_1"] >= 0.90, res["modes"]["svf"]
 
-    # the same features in an index on the CPU rank 4 queries as the card
+    # the same features in an index on the CPU rank RET_CPU_Q queries as
+    # the card
     cpu = ImageRetrievalIndex(device="cpu")
     for i in range(RET_IMAGES):
         f = feats[i // RET_B]
@@ -4281,25 +4280,6 @@ def run_bench(stamp: str) -> dict:
     return r
 
 
-def recorded_kernel_args(call, n_valid: int) -> tuple:
-    """The arguments of the first ADC kernel launch in `call()`, recorded
-    where the wrapper validates them: its tensors, then n_valid, the tile
-    and the segment, in the wrapper's order."""
-    from cvt_tpu_torch.ops.kernels import adc_scan as T
-    seen = []
-    check = T._check_launch
-
-    def record(q2s, qs, npad, tile_n, seg, tensors, *rest):
-        seen.append(tuple(tensors.values()) + (n_valid, tile_n, seg))
-        check(q2s, qs, npad, tile_n, seg, tensors, *rest)
-    T._check_launch = record
-    try:
-        call()
-    finally:
-        T._check_launch = check
-    return seen[0]
-
-
 def phase_bench_kernels(stamp: str) -> dict:
     """Step 27's kernel checks at the two shapes only the bench gives,
     each on the arguments the bench's own index hands the wrapper:
@@ -4313,8 +4293,8 @@ def phase_bench_kernels(stamp: str) -> dict:
     base, queries, _, _ = bench.load_data(N_DB, N_QUERIES)
     sqi, _, q_sq = bench.sq_index(base, queries, 64, dev)
     del base
-    args = recorded_kernel_args(lambda: sqi.search_fast(q_sq, K),
-                                sqi.ntotal)
+    args = recorded_args("adc_segmin_cached",
+                         lambda: sqi.search_fast(q_sq, K))
     assert args[0].shape[0] == N_QUERIES and args[2].shape[0] == 64, args
     out = {"adc_segmin_cached": compare_kernel_to_twin(
         T.adc_segmin_cached, T.adc_segmin_cached_plain, args,
@@ -4324,7 +4304,7 @@ def phase_bench_kernels(stamp: str) -> dict:
                   f"{args[6]}", out, stamp)
     del sqi, q_sq, args
     idx, _, q_sw = bench.sweep_index("isotropic", 0, bench.N_SWEEP, dev)
-    args = recorded_kernel_args(lambda: idx.search(q_sw, K), idx.ntotal)
+    args = recorded_args("adc_segmin", lambda: idx.search(q_sw, K))
     assert args[0].shape[0] == bench.NQ_SWEEP, args[0].shape
     norm = T._row_norms(T.decode_int8(args[2], args[3]), args[4])
     cmp = compare_kernel_to_twin(T.adc_segmin, T.adc_segmin_plain, args,
@@ -4336,6 +4316,138 @@ def phase_bench_kernels(stamp: str) -> dict:
     print(f"step 27's kernel checks took {time.perf_counter() - t0:.1f} s "
           f"{stamp}")
     return out
+
+
+def check_suite(name: str, r: dict) -> None:
+    """Step 28's gates on one suite's last line."""
+    g = SUITE_GATES
+    assert r["suite"] == name and r["device"] == card_line(), r["device"]
+    for x in numbers(r):
+        assert np.isfinite(x), (name, x)
+    n = r["kernel_launches"]
+    if name == "ivf":
+        assert n["ivf_page"] >= 1 and n["adc_segmin"] >= 1, n
+        for row in r["rows"]:
+            ivf = [row[f"ivf_nprobe{p}"] for p in IVF_NPROBES]
+            assert all(ln["ids_in_range"] for ln in
+                       ivf + [row["flat"], row["search"]]), row
+            assert all(ln["dropped"] == ln["dropped_timed"] == 0
+                       for ln in ivf), row
+            gap = 100 * abs(row[f"ivf_nprobe{IVF_REF_NPROBE}"]["r10"]
+                            - row["search"]["r10"])
+            assert gap <= g["parity_pt"], (row["N"], gap)
+    elif name == "serve":
+        assert n["adc_segmin"] >= 1 and r["ids_in_range"], r
+        assert r["top1_agreement"] >= g["agree"], r["top1_agreement"]
+        assert abs(r["parity_pt"]) <= g["parity_pt"], r["parity_pt"]
+    elif name == "dogfood":
+        c2 = r["config2_opq64"]
+        assert n["adc_segmin"] >= 1 and n["adc_segmin_cached"] >= 1, n
+        assert abs(c2["parity_pt"]) <= g["parity_pt"], c2
+        assert (c2["recall_at_1_exact"]
+                >= c2["recall_at_1_fast"] - g["exact_pt"] / 100), c2
+    elif name == "vocab5":
+        sw = r["A"]["sweep"]
+        assert (sw["probes=8+verify10"]["recall_at_1"]
+                >= sw["probes=8"]["recall_at_1"]), sw
+    elif name == "vocab":
+        mp = r["multiprobe"]
+        assert mp["agree16"] >= mp["agree8"], mp
+    elif name == "features":
+        k2048 = [v for key, v in r["extract"].items()
+                 if key.endswith("_k2048")]
+        assert k2048 and all(v["keypoints_min"] > g["keypoints"]
+                             for v in k2048), r["extract"]
+    else:
+        rec = next(s["recall"] for s in r["sweep"] if s["ef"] == g["hnsw_ef"])
+        assert rec >= g["hnsw_recall10"], r["sweep"]
+
+
+def run_suites(stamp: str) -> dict:
+    """Step 28: each suite of SUITE_RUNS as `python -m
+    cvt_tpu_torch.benches.<name>` (the kernels the parent built); its lane
+    lines and last line printed and checked. Returns the last lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for name, args, env in SUITE_RUNS:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", f"cvt_tpu_torch.benches.{name}", *args],
+            capture_output=True, text=True, cwd=root,
+            env=dict(os.environ, **env), timeout=SUITE_TIMEOUT_S)
+        dt = time.perf_counter() - t0
+        if run.returncode:
+            raise RuntimeError(f"benches.{name} exited {run.returncode}: "
+                               f"{run.stderr[-3000:]}")
+        rows = [json.loads(line) for line in run.stdout.splitlines()
+                if line.startswith("{")]
+        for ln in rows[:-1]:
+            print(f"suite {name} lane {json.dumps(ln)}")
+        r = out[name] = rows[-1]
+        print(f"suite {name} result {json.dumps(r)}")
+        check_suite(name, r)
+        print(f"step 28: {name} {' '.join(args)} {env or ''} took {dt:.1f} "
+              f"s ({r['seconds']:.1f} s inside the suite); launches "
+              f"{r['kernel_launches']} {stamp}")
+    return out
+
+
+def suite_paths(name: str, suites: dict) -> dict:
+    """A kernel's time beside its bound in each suite that times it alone
+    (the `kernels` field of its last line), for the kernels line's
+    by_path."""
+    out = {}
+    ivf = suites["ivf"]["kernels"]
+    if name == "ivf_page":
+        for n, by_p in ivf["ivf_page"].items():
+            for p, k in by_p.items():
+                out[f"suite_ivf_N{n}_nprobe{p}"] = {
+                    "ms": k["kernel_ms"], **{key: k[key] for key in (
+                        "bound_ms", "bound_by", "bound_share", "live_slots",
+                        "slots")}}
+        return out
+    if name == "adc_segmin":
+        for n, k in ivf["adc_segmin"].items():
+            out[f"suite_ivf_N{n}_flat_m16"] = k
+    for suite in ("serve", "dogfood"):
+        k = suites[suite]["kernels"].get(name)
+        if k:
+            out[f"suite_{suite}"] = k
+    return out
+
+
+def suite_twins(suites: dict, stamp: str) -> dict:
+    """Step 28's kernel checks, made inside the suites: every kernel lane
+    holds its kernel against the plain twin on the arguments the suite's
+    own index hands the wrapper (`ops.kernels.twin_check`, which stops the
+    suite on a difference) and reports the result under "twin". Each
+    kernel lane must carry one: the IVF suite's flat m-16 `adc_segmin`
+    and `ivf_page` at every nprobe of every N, the server's `adc_segmin`
+    at B 8,192, and dogfood's `adc_segmin` and `adc_segmin_cached` at
+    Bpad 2,048. -> each kernel's largest max_abs_err."""
+    ivf = suites["ivf"]["kernels"]
+    lanes = [(f"ivf N {n} flat m 16", "adc_segmin", k)
+             for n, k in ivf["adc_segmin"].items()]
+    lanes += [(f"ivf N {n} nprobe {p} (n_live {k['live_slots']} of "
+               f"{k['slots']} slots)", "ivf_page", k)
+              for n, by_p in ivf["ivf_page"].items()
+              for p, k in by_p.items()]
+    lanes += [(f"{suite} Npad {k['npad']} Bpad {k['bpad']}", name, k)
+              for suite in ("serve", "dogfood")
+              for name, k in suites[suite]["kernels"].items()]
+    want = {"ivf": ("adc_segmin", "ivf_page"), "serve": ("adc_segmin",),
+            "dogfood": ("adc_segmin", "adc_segmin_cached")}
+    for suite, names in want.items():
+        assert set(suites[suite]["kernels"]) == set(names), suite
+    err = {}
+    for what, name, k in lanes:
+        c = k["twin"]
+        err[name] = max(err.get(name, 0), c["max_abs_err"])
+        print(f"kernel vs twin in the suite, {what}: {name} max|diff| "
+              f"{c['max_abs_err']}, {c.get('rows_differ', 0)} rows differ, "
+              f"{c.get('near_half_rows', 0)} rows within 1e-4 of a "
+              f"half-integer {stamp}")
+    return err
 
 
 def print_compare(what: str, cmp: dict, stamp: str) -> None:
@@ -4708,7 +4820,9 @@ def main() -> int:
               max(ivf_cmp["max_abs_err"], ivf_rand["max_abs_err"],
                   ivf_rand_live["max_abs_err"]),
               itm["ivf_page_ms"], itm["ivf_page_plain_ms"], ivf_b,
-              live_slots=ivf_b["live_slots"], by_path={"ivf": path(ivf_b)},
+              live_slots=ivf_b["live_slots"],
+              launches_by_path={"ivf": iv["launches"]},
+              by_path={"ivf": path(ivf_b)},
               by_nprobe={str(p): dict(path(b), live_slots=b["live_slots"])
                          for p, b in ivf_bp.items()},
               sass=sass_of("ivf_page_kernel"))]
@@ -4732,6 +4846,22 @@ def main() -> int:
             e["launches_by_path"]["bench"] = launches[e["name"]]
             e["max_abs_err"] = max(e["max_abs_err"],
                                    bcmp[e["name"]]["max_abs_err"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    suites = run_suites(stamp)
+    scmp = suite_twins(suites, stamp)
+    print(f"step 28 took {time.perf_counter() - t0:.1f} s {stamp}")
+    for e in kernels:
+        name = e["name"]
+        for suite, r in suites.items():
+            if r["kernel_launches"][name]:
+                e["launches"] += r["kernel_launches"][name]
+                e["launches_by_path"][f"suite_{suite}"] = \
+                    r["kernel_launches"][name]
+        e["by_path"].update(suite_paths(name, suites))
+        if name in scmp:
+            e["max_abs_err"] = max(e["max_abs_err"], scmp[name])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -368,6 +368,18 @@ class IVFADCIndex:
             max_pages, lp=self._pg_lp, seg=self._pg_seg,
             exact_probe=exact_probe)
 
+    def cell_pages(self) -> int:
+        """The most pages one cell's rows span in the page layout: with
+        that many pages for each (query, probe) pair, a `search_fast`
+        budget (`max_pages`) drops none. The default budget of two assumes
+        every cell within a page or across one page boundary."""
+        seg_cell = self._pg_seg_cell.cpu().numpy().astype(np.int64)
+        n_pages = self._pg_dec8_t.shape[1] // self._pg_lp
+        page = np.arange(len(seg_cell)) // (self._pg_lp // self._pg_seg)
+        live = seg_cell >= 0
+        pairs = np.unique(seg_cell[live] * n_pages + page[live])
+        return int(np.bincount(pairs // n_pages).max())
+
     def search_threshold(self, q, radius: float, *, nprobe: int = 16,
                          max_results: int = 128,
                          probe_chunk: int | None = None):

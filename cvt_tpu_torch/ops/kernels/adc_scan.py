@@ -15,7 +15,8 @@ hand-written CUDA kernels (`csrc/adc_scan.cu`):
 Each kernel has a plain PyTorch twin here (`*_plain`) computing the same
 integers. The wrapper runs the twin for tensors on the CPU and launches
 the kernel for tensors on the card, counting launches in `.launches`;
-it never falls back from one to the other.
+it never falls back from one to the other. While `.recorded` is a list
+(`ops.kernels.recorded_args`), each call appends its arguments to it.
 
 Phase 2 is PyTorch: a top-k over the tile candidates (fast path), or an
 exact f32 re-score of the k+slack best segments (exact path).
@@ -265,6 +266,9 @@ def adc_segmin(q2s, qs, codes, cb_q, s2, n_valid: int, tile_n: int,
     4-7 zero padding (the layout of `cvt_tpu`'s kernel).
     """
     npad = codes.shape[0]
+    if adc_segmin.recorded is not None:
+        adc_segmin.recorded.append((q2s, qs, codes, cb_q, s2, n_valid,
+                                    tile_n, seg))
     if q2s.device.type == "cpu":
         return adc_segmin_plain(q2s, qs, codes, cb_q, s2, n_valid, tile_n,
                                 seg)
@@ -292,6 +296,7 @@ def adc_segmin(q2s, qs, codes, cb_q, s2, n_valid: int, tile_n: int,
 
 
 adc_segmin.launches = 0
+adc_segmin.recorded = None
 
 
 def adc_segmin_cached(q2s, qs, dec8_t, norm_col, n_valid: int, tile_n: int,
@@ -299,6 +304,9 @@ def adc_segmin_cached(q2s, qs, dec8_t, norm_col, n_valid: int, tile_n: int,
     """Phase 1 over the decoded cache -> (segpack, tiletop) as
     `adc_segmin`. dec8_t [D, Npad] int8; norm_col [Npad, 1] f32."""
     npad = dec8_t.shape[1]
+    if adc_segmin_cached.recorded is not None:
+        adc_segmin_cached.recorded.append((q2s, qs, dec8_t, norm_col,
+                                           n_valid, tile_n, seg))
     if q2s.device.type == "cpu":
         return adc_segmin_cached_plain(q2s, qs, dec8_t, norm_col, n_valid,
                                        tile_n, seg)
@@ -325,6 +333,7 @@ def adc_segmin_cached(q2s, qs, dec8_t, norm_col, n_valid: int, tile_n: int,
 
 
 adc_segmin_cached.launches = 0
+adc_segmin_cached.recorded = None
 
 
 def _rescore_segments(q, q_sq, seg_ids, codes, dec_sq, codebooks, k: int,

@@ -19,7 +19,8 @@ probed lists' top-k and not the batch union's.
 Phase 1 is the hand-written CUDA kernel `ivf_page_kernel`
 (`csrc/ivf_scan.cu`, int8 tensor cores) for tensors on the card and its
 plain PyTorch twin `ivf_pages_segmin_plain` for tensors on the CPU; the
-wrapper `ivf_pages_segmin` counts its launches in `.launches` and never
+wrapper `ivf_pages_segmin` counts its launches in `.launches` (and, while
+`.recorded` is a list, appends each call's arguments to it) and never
 falls back from one to the other. `sel` pads the probed pages to a fixed
 length with fill slots; both skip the slots past `n_live` (a one-element
 tensor, read on the device) and write INT32_MAX there. Phase 2 (PyTorch)
@@ -185,6 +186,9 @@ def ivf_pages_segmin(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int, seg: int,
     twin; tensors on the card launch `ivf_page_kernel` (counted in
     `ivf_pages_segmin.launches`), which reads n_live on the device, so
     nothing waits on the host; any other device raises."""
+    if ivf_pages_segmin.recorded is not None:
+        ivf_pages_segmin.recorded.append((q2s, qs, dec8_t, nrm_col, cip, sel,
+                                          lp, seg, n_live))
     if q2s.device.type == "cpu":
         return ivf_pages_segmin_plain(q2s, qs, dec8_t, nrm_col, cip, sel,
                                       lp, seg, n_live)
@@ -209,6 +213,7 @@ def ivf_pages_segmin(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int, seg: int,
 
 
 ivf_pages_segmin.launches = 0
+ivf_pages_segmin.recorded = None
 
 
 def coarse_probes(q, centroids, nprobe: int):
