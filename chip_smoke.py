@@ -298,6 +298,23 @@
    launches_by_path["suite_<name>"], their kernel times beside their
    bounds under by_path["suite_..."].
 
+29. The repository's four probes as users run them, each `python -m
+   cvt_tpu_torch.probes.<name> --quick` as a subprocess at its script's
+   sizes with one timed window per stage (PROBE_RUNS, in this order):
+   adc (1M x 128, M 8, K 256, Npad 1,015,808: `adc_segmin` alone at tile
+   1,024 / 2,048 / 4,096 and B 4,096, and as the fast search runs it
+   beside the whole search at B 4,096 / 8,192 / 16,384), detect (the
+   pyramid, the 3x3x3 stencil, the raw top-k and `detect_octave` at B 8,
+   640 x 480, K 8,192), feat (pyramid, detection and selection,
+   orientations, descriptors of the fast extraction path) and orient (the
+   orientation pass's gathers alone, its histogram and peaks alone, the
+   whole pass). Each must exit 0 and print a finite time for every stage
+   and the device line of this card; the ADC probe must launch
+   `adc_segmin`, refuse no tile and hold each of its six phase-1 shapes
+   (PROBE_ADC_TWINS) bitwise against the twin, each printed here. Its
+   launches join the kernels line under launches_by_path["probe_adc"],
+   its twin errors `adc_segmin`'s max_abs_err.
+
 Every ADC kernel-against-twin check demands segpack and tiletop bitwise
 equal, except that a row whose norm/qs lies within 1e-4 of a half-integer
 may move its key by seg (float32 summation order); such rows are counted
@@ -473,6 +490,15 @@ SUITE_RUNS = (("ivf", (), {"IVF_BENCH_N": "1000000"}), ("serve", (), {}),
 SUITE_TIMEOUT_S = 400
 SUITE_GATES = dict(parity_pt=1.0, agree=0.99, exact_pt=0.5, keypoints=500,
                    hnsw_ef=80, hnsw_recall10=0.90)
+# step 29: the four probes (cvt_tpu_torch/probes, the ports of the
+# top-level _prof_*.py scripts), each a subprocess at its script's sizes
+# with --quick (one timed window per stage); the ADC probe's phase-1 shapes
+# that must each hold bitwise against the twin
+PROBE_RUNS = ("adc", "detect", "feat", "orient")
+PROBE_TIMEOUT_S = 180
+PROBE_ADC_TWINS = tuple(
+    [f"phase1 tile={t} B=4096" for t in (1024, 2048, 4096)]
+    + [f"phase1 (search's) B={b}" for b in (4096, 8192, 16384)])
 # H100 SXM data sheet: float32 outside the tensor cores (TF32 is off)
 PEAK_FP32_FLOPS = 67e12
 SASS_CLASSES = ("IMMA", "IGMMA", "IDP4A")
@@ -4450,6 +4476,55 @@ def suite_twins(suites: dict, stamp: str) -> dict:
     return err
 
 
+def check_probe(name: str, stages: list, r: dict) -> None:
+    """Step 29's checks on one probe's stage lines and last line."""
+    assert r["suite"] == f"probes.{name}" and r["device"] == card_line(), r
+    assert stages and all(np.isfinite(s["ms"]) for s in stages), name
+    for x in numbers(r):
+        assert np.isfinite(x), (name, x)
+    if name == "adc":
+        assert r["refused"] == {} and r["kernel_launches"]["adc_segmin"] >= 1
+        assert sorted(r["twins"]) == sorted(PROBE_ADC_TWINS), r["twins"]
+        for what, c in r["twins"].items():
+            assert c["rows_differ"] == c["max_abs_err"] == 0, (what, c)
+
+
+def run_probes(stamp: str) -> dict:
+    """Step 29: each probe of PROBE_RUNS as `python -m
+    cvt_tpu_torch.probes.<name> --quick` (the kernels the parent built);
+    its stage lines and last line printed and checked. Returns the last
+    lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for name in PROBE_RUNS:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", f"cvt_tpu_torch.probes.{name}",
+             "--quick"], capture_output=True, text=True, cwd=root,
+            timeout=PROBE_TIMEOUT_S)
+        dt = time.perf_counter() - t0
+        if run.returncode:
+            raise RuntimeError(f"probes.{name} exited {run.returncode}: "
+                               f"{run.stderr[-3000:]}")
+        *stages, r = [json.loads(line) for line in run.stdout.splitlines()
+                      if line.startswith("{")]
+        for st in stages:
+            print(f"probe {name} stage {json.dumps(st)}")
+        out[name] = r
+        print(f"probe {name} result {json.dumps(r)}")
+        check_probe(name, stages, r)
+        print(f"step 29: probes.{name} --quick took {dt:.1f} s "
+              f"({r['seconds']:.1f} s inside the probe); launches "
+              f"{r['kernel_launches']} {stamp}")
+    for what, c in out["adc"]["twins"].items():
+        print(f"kernel vs twin in the ADC probe, {what}, Npad "
+              f"{out['adc']['npad']}: adc_segmin max|diff| "
+              f"{c['max_abs_err']}, {c['rows_differ']} rows differ, "
+              f"{c['near_half_rows']} rows within 1e-4 of a half-integer "
+              f"{stamp}")
+    return out
+
+
 def print_compare(what: str, cmp: dict, stamp: str) -> None:
     for name, c in cmp.items():
         print(f"kernel vs twin, {what}: {name} max|diff| {c['max_abs_err']}"
@@ -4862,6 +4937,19 @@ def main() -> int:
         e["by_path"].update(suite_paths(name, suites))
         if name in scmp:
             e["max_abs_err"] = max(e["max_abs_err"], scmp[name])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    probes = run_probes(stamp)
+    print(f"step 29 took {time.perf_counter() - t0:.1f} s {stamp}")
+    for e in kernels:
+        for name, r in probes.items():
+            if r["kernel_launches"][e["name"]]:
+                e["launches"] += r["kernel_launches"][e["name"]]
+                e["launches_by_path"][f"probe_{name}"] = \
+                    r["kernel_launches"][e["name"]]
+    adc_probe = [c["max_abs_err"] for c in probes["adc"]["twins"].values()]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], *adc_probe)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -199,6 +199,17 @@ def _orientation_rows(sample, x, y, sigma_oct, level, oct_i, affine,
                       n_samples, fn):
     """Run fn(hist rows) over chunks of keypoint rows; returns the list of
     its per-chunk results in row order."""
+    return _orientation_samples(
+        sample, x, y, sigma_oct, level, oct_i, affine, n_samples,
+        lambda g1, g2, wgt: fn(_orientation_hist(g1, g2, wgt)))
+
+
+def _orientation_samples(sample, x, y, sigma_oct, level, oct_i, affine,
+                         n_samples, fn):
+    """Run fn(g1, g2, wgt) over chunks of keypoint rows: the patch-frame
+    gradients [rows, P^2] sampled in the orientation window and its
+    Gaussian weights [P^2]; returns the list of its per-chunk results in
+    row order."""
     b, k = x.shape
     dev = x.device
     grid, wgt, win_r = _orientation_grid(n_samples)
@@ -214,7 +225,7 @@ def _orientation_rows(sample, x, y, sigma_oct, level, oct_i, affine,
                        None if am is None else am[c])
         vx, vy = sample(bi[c], orr[c], lr[c], xs, ys)
         g1, g2 = _pull_back(vx, vy, None if am is None else am[c])
-        out.append(fn(_orientation_hist(g1, g2, wgt)))
+        out.append(fn(g1, g2, wgt))
     return out
 
 

@@ -252,6 +252,21 @@ def _outputs(npad: int, tile_n: int, bpad: int, seg: int, dev):
                         device=dev))
 
 
+def check_segmin_launch(q2s, qs, codes, cb_q, s2, tile_n: int,
+                        seg: int = SEG) -> None:
+    """What the `adc_segmin` kernel takes, checked on its arguments (on any
+    device) before a launch: raises ValueError or TypeError on a shape,
+    tile, segment or dtype the kernel refuses."""
+    m, _, ds = cb_q.shape
+    _check_launch(q2s, qs, codes.shape[0], tile_n, seg,
+                  dict(q2s=q2s, qs=qs, codes=codes, cb_q=cb_q, s2=s2),
+                  dict(q2s=torch.int8, qs=torch.float32, codes=torch.uint8,
+                       cb_q=torch.int8, s2=torch.float32), cb_q.numel())
+    d = q2s.shape[1]
+    if codes.shape[1] != m or m * ds != d or s2.shape != (d,):
+        raise ValueError("codes/cb_q/s2 shapes disagree with q2s")
+
+
 def adc_segmin(q2s, qs, codes, cb_q, s2, n_valid: int, tile_n: int,
                seg: int = SEG):
     """Phase 1 with decode -> (segpack [Npad/seg, Bpad] i32, tiletop
@@ -274,14 +289,9 @@ def adc_segmin(q2s, qs, codes, cb_q, s2, n_valid: int, tile_n: int,
                                 seg)
     if q2s.device.type != "cuda":
         raise ValueError(f"no adc_segmin kernel for {q2s.device}")
+    check_segmin_launch(q2s, qs, codes, cb_q, s2, tile_n, seg)
     m, k_sub, ds = cb_q.shape
-    _check_launch(q2s, qs, npad, tile_n, seg,
-                  dict(q2s=q2s, qs=qs, codes=codes, cb_q=cb_q, s2=s2),
-                  dict(q2s=torch.int8, qs=torch.float32, codes=torch.uint8,
-                       cb_q=torch.int8, s2=torch.float32), cb_q.numel())
     bpad, d = q2s.shape
-    if codes.shape[1] != m or m * ds != d or s2.shape != (d,):
-        raise ValueError("codes/cb_q/s2 shapes disagree with q2s")
     vcap, ibase = _pack_caps(seg, d)
     lib = _build.load()
     segpack, tiletop = _outputs(npad, tile_n, bpad, seg, q2s.device)

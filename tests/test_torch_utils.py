@@ -144,7 +144,9 @@ def test_package_imports_without_jax():
                  "cvt_tpu_torch.utils.profile", "cvt_tpu_torch.bench",
                  *(f"cvt_tpu_torch.benches.{m}" for m in (
                      "ivf", "serve", "dogfood", "vocab5", "vocab",
-                     "features", "hnsw"))):
+                     "features", "hnsw")),
+                 *(f"cvt_tpu_torch.probes.{m}" for m in (
+                     "adc", "detect", "feat", "orient"))):
         assert must in names
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'optax', 'cvt_tpu'):\n"
