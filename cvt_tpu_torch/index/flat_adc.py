@@ -28,6 +28,7 @@ from cvt_tpu_torch.ops.kernels.adc_scan import (_quantize_codebooks,
 from cvt_tpu_torch.ops.topk import merge_topk, top_k_smallest
 from cvt_tpu_torch.quant.opq import OPQ
 from cvt_tpu_torch.quant.pq import ProductQuantizer
+from cvt_tpu_torch.utils.profile import span
 
 _PAD = 16384    # kernel arrays are padded to a multiple of the largest tile
 
@@ -141,7 +142,8 @@ class FlatADCIndex:
         self._pending, self._pending_n = [], 0
 
     def _rotate(self, x) -> torch.Tensor:
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        with span("flat.stage_in"):
+            x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         return x if self.rotation is None else x @ self.rotation
 
     def add(self, x=None, *, codes=None) -> None:
@@ -179,25 +181,33 @@ class FlatADCIndex:
         giving exact top-k w.r.t. full-precision ADC; the default fast
         path scores with the int8-decode kernel only (top-1 exact by the
         segment lemma up to int8 quantization of the codebooks). After
-        build_decoded_cache(), the fast path scans the cache instead."""
-        self._materialize()
-        if self._codes is None:
-            raise RuntimeError("empty index")
-        qr = self._rotate(q)
-        q_sq = torch.sum(qr * qr, dim=-1)
-        n = self.ntotal
-        if self._resolve_impl() == "kernel" and k <= 128:
-            if not exact and self._dec8_n == n:
-                return adc_search_cached(qr, self._dec8_t, self._norm_col,
-                                         self._srow_cache, min(k, n), n)
-            codes, dec_sq, cb_q, srow = self._kernel_arrays()
-            return adc_search(qr, q_sq, codes, dec_sq, self.pq.codebooks,
-                              min(k, n), n, cb_q=cb_q, srow=srow,
-                              exact=exact)
-        chunk = min(self.chunk, n)
-        codes, dsq = self._padded(-(-n // chunk) * chunk)
-        return _adc_scan(qr, q_sq, codes, dsq, self.pq.codebooks,
-                         min(k, n), chunk, n)
+        build_decoded_cache(), the fast path scans the cache instead.
+
+        Traced, the call is one `flat.search` span holding `flat.stage_in`
+        (the queries to the index's device), `flat.prep` (rotation and
+        norms), then the kernel search's `adc.prep` (the query fold), its
+        kernel's span and `adc.select` (ops/kernels/adc_scan.py)."""
+        with span("flat.search"):
+            self._materialize()
+            if self._codes is None:
+                raise RuntimeError("empty index")
+            with span("flat.prep"):
+                qr = self._rotate(q)
+                q_sq = torch.sum(qr * qr, dim=-1)
+            n = self.ntotal
+            if self._resolve_impl() == "kernel" and k <= 128:
+                if not exact and self._dec8_n == n:
+                    return adc_search_cached(qr, self._dec8_t,
+                                             self._norm_col,
+                                             self._srow_cache, min(k, n), n)
+                codes, dec_sq, cb_q, srow = self._kernel_arrays()
+                return adc_search(qr, q_sq, codes, dec_sq, self.pq.codebooks,
+                                  min(k, n), n, cb_q=cb_q, srow=srow,
+                                  exact=exact)
+            chunk = min(self.chunk, n)
+            codes, dsq = self._padded(-(-n // chunk) * chunk)
+            return _adc_scan(qr, q_sq, codes, dsq, self.pq.codebooks,
+                             min(k, n), chunk, n)
 
     def _padded(self, npad: int):
         """(codes, dec_sq) zero-padded to npad rows."""

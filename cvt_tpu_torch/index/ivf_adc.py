@@ -32,6 +32,7 @@ from cvt_tpu_torch.ops.kmeans import kmeans, kmeans_assign
 from cvt_tpu_torch.ops.topk import merge_topk, top_k_smallest
 from cvt_tpu_torch.quant.pq import ProductQuantizer
 from cvt_tpu_torch.utils.device import resolve_device
+from cvt_tpu_torch.utils.profile import span
 
 
 def _probed_scores(q, centroids, cw_sqnorm, codebooks, buckets, bucket_ids,
@@ -348,25 +349,33 @@ class IVFADCIndex:
         """Union-probe page scan (the production query path): the same
         nprobe semantics as search(), scored decode-free by the `ivf_page`
         kernel on the card (its twin on the CPU). Returns (dists [B, k],
-        ids [B, k], n_dropped_pages)."""
-        q = self._query(q)
-        if not hasattr(self, "_pg_dec8_t"):
-            raise RuntimeError("no page layout (index saved by an older "
-                               "version) — rebuild with build()")
-        b = q.shape[0]
-        nprobe = min(nprobe, self.coarse_k)
-        n_pages = self._pg_dec8_t.shape[1] // self._pg_lp
-        if max_pages is None:
-            # union bound: every (query, probe) pair could own up to two
-            # distinct pages (a cell list straddling a page boundary)
-            max_pages = min(n_pages, 2 * b * nprobe)
-        max_pages = max(8, min(max_pages, n_pages))
-        return ivf_union_search(
-            q, self.centroids, self._pg_dec8_t, self._pg_dec16,
-            self._pg_srow16, self._pg_nrm, self._pg_seg_cell,
-            self._pg_rowids, self._pg_srow, self._pg_dsq_min, nprobe, k,
-            max_pages, lp=self._pg_lp, seg=self._pg_seg,
-            exact_probe=exact_probe)
+        ids [B, k], n_dropped_pages).
+
+        Traced, the call is one `ivf.search` span holding `ivf.stage_in`
+        (the queries to the index's device) and the stages of
+        `ivf_union_search`: `ivf.probe`, `ivf.coarse_terms`, `ivf.fold`,
+        `kernel.ivf_page`, `ivf.rescore` and `ivf.select`."""
+        with span("ivf.search"):
+            with span("ivf.stage_in"):
+                q = self._query(q)
+            if not hasattr(self, "_pg_dec8_t"):
+                raise RuntimeError("no page layout (index saved by an older "
+                                   "version) — rebuild with build()")
+            b = q.shape[0]
+            nprobe = min(nprobe, self.coarse_k)
+            n_pages = self._pg_dec8_t.shape[1] // self._pg_lp
+            if max_pages is None:
+                # union bound: every (query, probe) pair could own up to
+                # two distinct pages (a cell list straddling a page
+                # boundary)
+                max_pages = min(n_pages, 2 * b * nprobe)
+            max_pages = max(8, min(max_pages, n_pages))
+            return ivf_union_search(
+                q, self.centroids, self._pg_dec8_t, self._pg_dec16,
+                self._pg_srow16, self._pg_nrm, self._pg_seg_cell,
+                self._pg_rowids, self._pg_srow, self._pg_dsq_min, nprobe, k,
+                max_pages, lp=self._pg_lp, seg=self._pg_seg,
+                exact_probe=exact_probe)
 
     def cell_pages(self) -> int:
         """The most pages one cell's rows span in the page layout: with

@@ -21,6 +21,10 @@ it never falls back from one to the other. While `.recorded` is a list
 Phase 2 is PyTorch: a top-k over the tile candidates (fast path), or an
 exact f32 re-score of the k+slack best segments (exact path).
 
+Traced (`utils.profile.span`), the query fold is an `adc.prep` span,
+each kernel wrapper a `kernel.*` span and phase 2 an `adc.select` span,
+whichever index or bench calls them.
+
 Segment lemma: a query's k-th smallest distance tau bounds the segments
 of interest — every candidate <= tau lies in a segment whose min <= tau,
 and at most k segments have min <= tau. The fast path is exact for top-1;
@@ -36,6 +40,7 @@ import torch.nn.functional as F
 
 from cvt_tpu_torch.ops.kernels import _build
 from cvt_tpu_torch.ops.topk import top_k_smallest
+from cvt_tpu_torch.utils.profile import span
 
 BIG = 3.4e38            # finite +inf stand-in for padded result slots
 _IMAX = 2_147_000_000   # masks a tile's best key while finding its second
@@ -278,31 +283,34 @@ def adc_segmin(q2s, qs, codes, cb_q, s2, n_valid: int, tile_n: int,
     [M, K, ds] int8 quantized codebooks; s2 [D] f32 = srow^2. segpack rows
     are packed (score*seg + lane) segment minima; tiletop rows 0/1 are
     each tile's two best keys, rows 2/3 their rows within the tile, rows
-    4-7 zero padding (the layout of `cvt_tpu`'s kernel).
+    4-7 zero padding (the layout of `cvt_tpu`'s kernel). Traced, the
+    call is one `kernel.adc_segmin` span.
     """
-    npad = codes.shape[0]
-    if adc_segmin.recorded is not None:
-        adc_segmin.recorded.append((q2s, qs, codes, cb_q, s2, n_valid,
-                                    tile_n, seg))
-    if q2s.device.type == "cpu":
-        return adc_segmin_plain(q2s, qs, codes, cb_q, s2, n_valid, tile_n,
-                                seg)
-    if q2s.device.type != "cuda":
-        raise ValueError(f"no adc_segmin kernel for {q2s.device}")
-    check_segmin_launch(q2s, qs, codes, cb_q, s2, tile_n, seg)
-    m, k_sub, ds = cb_q.shape
-    bpad, d = q2s.shape
-    vcap, ibase = _pack_caps(seg, d)
-    lib = _build.load()
-    segpack, tiletop = _outputs(npad, tile_n, bpad, seg, q2s.device)
-    with torch.cuda.device(q2s.device):
-        _build.check(lib, lib.cvt_adc_segmin(
-            codes.data_ptr(), cb_q.data_ptr(), q2s.data_ptr(),
-            s2.data_ptr(), qs.data_ptr(), npad, m, k_sub, ds, bpad, n_valid,
-            tile_n, seg, vcap, ibase, segpack.data_ptr(), tiletop.data_ptr(),
-            torch.cuda.current_stream().cuda_stream), "adc_segmin")
-    adc_segmin.launches += 1
-    return segpack, tiletop
+    with span("kernel.adc_segmin"):
+        npad = codes.shape[0]
+        if adc_segmin.recorded is not None:
+            adc_segmin.recorded.append((q2s, qs, codes, cb_q, s2, n_valid,
+                                        tile_n, seg))
+        if q2s.device.type == "cpu":
+            return adc_segmin_plain(q2s, qs, codes, cb_q, s2, n_valid,
+                                    tile_n, seg)
+        if q2s.device.type != "cuda":
+            raise ValueError(f"no adc_segmin kernel for {q2s.device}")
+        check_segmin_launch(q2s, qs, codes, cb_q, s2, tile_n, seg)
+        m, k_sub, ds = cb_q.shape
+        bpad, d = q2s.shape
+        vcap, ibase = _pack_caps(seg, d)
+        lib = _build.load()
+        segpack, tiletop = _outputs(npad, tile_n, bpad, seg, q2s.device)
+        with torch.cuda.device(q2s.device):
+            _build.check(lib, lib.cvt_adc_segmin(
+                codes.data_ptr(), cb_q.data_ptr(), q2s.data_ptr(),
+                s2.data_ptr(), qs.data_ptr(), npad, m, k_sub, ds, bpad,
+                n_valid, tile_n, seg, vcap, ibase, segpack.data_ptr(),
+                tiletop.data_ptr(), torch.cuda.current_stream().cuda_stream),
+                "adc_segmin")
+        adc_segmin.launches += 1
+        return segpack, tiletop
 
 
 adc_segmin.launches = 0
@@ -312,34 +320,37 @@ adc_segmin.recorded = None
 def adc_segmin_cached(q2s, qs, dec8_t, norm_col, n_valid: int, tile_n: int,
                       seg: int = SEG):
     """Phase 1 over the decoded cache -> (segpack, tiletop) as
-    `adc_segmin`. dec8_t [D, Npad] int8; norm_col [Npad, 1] f32."""
-    npad = dec8_t.shape[1]
-    if adc_segmin_cached.recorded is not None:
-        adc_segmin_cached.recorded.append((q2s, qs, dec8_t, norm_col,
-                                           n_valid, tile_n, seg))
-    if q2s.device.type == "cpu":
-        return adc_segmin_cached_plain(q2s, qs, dec8_t, norm_col, n_valid,
-                                       tile_n, seg)
-    if q2s.device.type != "cuda":
-        raise ValueError(f"no adc_segmin_cached kernel for {q2s.device}")
-    _check_launch(q2s, qs, npad, tile_n, seg,
-                  dict(q2s=q2s, qs=qs, dec8_t=dec8_t, norm_col=norm_col),
-                  dict(q2s=torch.int8, qs=torch.float32, dec8_t=torch.int8,
-                       norm_col=torch.float32))
-    bpad, d = q2s.shape
-    if dec8_t.shape[0] != d or norm_col.shape != (npad, 1):
-        raise ValueError("dec8_t/norm_col shapes disagree with q2s")
-    vcap, ibase = _pack_caps(seg, d)
-    lib = _build.load()
-    segpack, tiletop = _outputs(npad, tile_n, bpad, seg, q2s.device)
-    with torch.cuda.device(q2s.device):
-        _build.check(lib, lib.cvt_adc_segmin_cached(
-            dec8_t.data_ptr(), norm_col.data_ptr(), q2s.data_ptr(),
-            qs.data_ptr(), npad, d, bpad, n_valid, tile_n, seg, vcap, ibase,
-            segpack.data_ptr(), tiletop.data_ptr(),
-            torch.cuda.current_stream().cuda_stream), "adc_segmin_cached")
-    adc_segmin_cached.launches += 1
-    return segpack, tiletop
+    `adc_segmin`. dec8_t [D, Npad] int8; norm_col [Npad, 1] f32. Traced,
+    the call is one `kernel.adc_segmin_cached` span."""
+    with span("kernel.adc_segmin_cached"):
+        npad = dec8_t.shape[1]
+        if adc_segmin_cached.recorded is not None:
+            adc_segmin_cached.recorded.append((q2s, qs, dec8_t, norm_col,
+                                               n_valid, tile_n, seg))
+        if q2s.device.type == "cpu":
+            return adc_segmin_cached_plain(q2s, qs, dec8_t, norm_col,
+                                           n_valid, tile_n, seg)
+        if q2s.device.type != "cuda":
+            raise ValueError(f"no adc_segmin_cached kernel for {q2s.device}")
+        _check_launch(q2s, qs, npad, tile_n, seg,
+                      dict(q2s=q2s, qs=qs, dec8_t=dec8_t, norm_col=norm_col),
+                      dict(q2s=torch.int8, qs=torch.float32,
+                           dec8_t=torch.int8, norm_col=torch.float32))
+        bpad, d = q2s.shape
+        if dec8_t.shape[0] != d or norm_col.shape != (npad, 1):
+            raise ValueError("dec8_t/norm_col shapes disagree with q2s")
+        vcap, ibase = _pack_caps(seg, d)
+        lib = _build.load()
+        segpack, tiletop = _outputs(npad, tile_n, bpad, seg, q2s.device)
+        with torch.cuda.device(q2s.device):
+            _build.check(lib, lib.cvt_adc_segmin_cached(
+                dec8_t.data_ptr(), norm_col.data_ptr(), q2s.data_ptr(),
+                qs.data_ptr(), npad, d, bpad, n_valid, tile_n, seg, vcap,
+                ibase, segpack.data_ptr(), tiletop.data_ptr(),
+                torch.cuda.current_stream().cuda_stream),
+                "adc_segmin_cached")
+        adc_segmin_cached.launches += 1
+        return segpack, tiletop
 
 
 adc_segmin_cached.launches = 0
@@ -399,33 +410,37 @@ def _select_tiletop(segpack, tiletop, qs, q_sq, b: int, k: int, tile_n: int,
     keys collapse into exact f32 ties there, so ids agree only because
     the stable sort breaks ties toward the lower index as `lax.top_k`
     does. ids come from the row-in-tile sidecar."""
-    n_tiles = tiletop.shape[0]
-    spt = tile_n // seg
-    # only tiles overlapping real rows can contribute candidates: a
-    # database padded far beyond n_valid must fall back to segment-minima
-    # selection or the top-2-per-tile cap truncates the candidate pool
-    # below k and padding sentinels leak into the tail of the results
-    real_tiles = (n_tiles if n_valid is None
-                  else min(n_tiles, -(-int(n_valid) // tile_n)))
-    if 2 * real_tiles < k or spt < 2:
-        # tiny database: flat selection over all packed segment minima
-        packed, j = top_k_smallest(segpack.T[:b], min(k, segpack.shape[0]))
-        score, lane = _unpack(packed, seg)
-        ids = (j * seg + lane).to(torch.int32)
-        dist = score.float() * qs + q_sq[:, None]
-        if ids.shape[1] < k:
-            pad = (0, k - ids.shape[1])
-            dist = F.pad(dist, pad, value=BIG)
-            ids = F.pad(ids, pad, value=2 ** 30)
+    with span("adc.select"):
+        n_tiles = tiletop.shape[0]
+        spt = tile_n // seg
+        # only tiles overlapping real rows can contribute candidates: a
+        # database padded far beyond n_valid must fall back to
+        # segment-minima selection or the top-2-per-tile cap truncates the
+        # candidate pool below k and padding sentinels leak into the tail
+        # of the results
+        real_tiles = (n_tiles if n_valid is None
+                      else min(n_tiles, -(-int(n_valid) // tile_n)))
+        if 2 * real_tiles < k or spt < 2:
+            # tiny database: flat selection over all packed segment minima
+            packed, j = top_k_smallest(segpack.T[:b],
+                                       min(k, segpack.shape[0]))
+            score, lane = _unpack(packed, seg)
+            ids = (j * seg + lane).to(torch.int32)
+            dist = score.float() * qs + q_sq[:, None]
+            if ids.shape[1] < k:
+                pad = (0, k - ids.shape[1])
+                dist = F.pad(dist, pad, value=BIG)
+                ids = F.pad(ids, pad, value=2 ** 30)
+            return dist, ids
+        # [2T, Bpad]: each tile's best key, then its second
+        packs = torch.cat([tiletop[:, 0, :], tiletop[:, 1, :]], 0)
+        rows = torch.cat([tiletop[:, 2, :], tiletop[:, 3, :]], 0)
+        keys, j = top_k_smallest(packs.float().T[:b], k)
+        tile = torch.where(j < n_tiles, j, j - n_tiles)
+        rowint = torch.gather(rows.T[:b], -1, j)
+        ids = (tile * tile_n + rowint).to(torch.int32)
+        dist = (keys / seg) * qs + q_sq[:, None]
         return dist, ids
-    packs = torch.cat([tiletop[:, 0, :], tiletop[:, 1, :]], 0)   # [2T, Bpad]
-    rows = torch.cat([tiletop[:, 2, :], tiletop[:, 3, :]], 0)
-    keys, j = top_k_smallest(packs.float().T[:b], k)
-    tile = torch.where(j < n_tiles, j, j - n_tiles)
-    rowint = torch.gather(rows.T[:b], -1, j)
-    ids = (tile * tile_n + rowint).to(torch.int32)
-    dist = (keys / seg) * qs + q_sq[:, None]
-    return dist, ids
 
 
 def _fold_for(q, srow, d: int):
@@ -438,9 +453,10 @@ def _fold_for(q, srow, d: int):
 
 def _adc_search_fast(q, q_sq, codes, cb_q, srow, k, n_valid, tile_n):
     """Query fold + packed kernel + tile-top2 selection."""
-    q2s, qs = _fold_for(q, srow, q.shape[1])
-    segpack, tiletop = adc_segmin(q2s, qs, codes, cb_q, srow * srow,
-                                  n_valid, tile_n)
+    with span("adc.prep"):
+        q2s, qs = _fold_for(q, srow, q.shape[1])
+        s2 = srow * srow
+    segpack, tiletop = adc_segmin(q2s, qs, codes, cb_q, s2, n_valid, tile_n)
     return _select_tiletop(segpack, tiletop, qs, q_sq, q.shape[0], k,
                            tile_n, SEG, n_valid)
 
@@ -449,13 +465,15 @@ def _adc_search_exact(q, q_sq, codes, cb_q, srow, dec_sq, codebooks, k,
                       n_valid, tile_n, slack):
     """Packed kernel, then an f32 re-score of the k+slack best segments
     (packed keys rank exactly like segment minima)."""
-    q2s, qs = _fold_for(q, srow, q.shape[1])
-    segpack, _ = adc_segmin(q2s, qs, codes, cb_q, srow * srow, n_valid,
-                            tile_n)
-    n_seg_take = min(k + slack, segpack.shape[0])
-    _, seg_ids = top_k_smallest(segpack.T[:q.shape[0]], n_seg_take)
-    return _rescore_segments(q, q_sq, seg_ids, codes, dec_sq, codebooks,
-                             k, SEG, n_valid)
+    with span("adc.prep"):
+        q2s, qs = _fold_for(q, srow, q.shape[1])
+        s2 = srow * srow
+    segpack, _ = adc_segmin(q2s, qs, codes, cb_q, s2, n_valid, tile_n)
+    with span("adc.select"):
+        n_seg_take = min(k + slack, segpack.shape[0])
+        _, seg_ids = top_k_smallest(segpack.T[:q.shape[0]], n_seg_take)
+        return _rescore_segments(q, q_sq, seg_ids, codes, dec_sq, codebooks,
+                                 k, SEG, n_valid)
 
 
 def fast_tile_n(npad: int) -> int:
@@ -529,11 +547,13 @@ def adc_search_cached(q, dec8_t, norm_col, srow, k: int, n_valid: int,
     npad = dec8_t.shape[1]
     tile_n = cached_tile_n(npad) if tile_n is None else tile_n
     seg = cached_seg(dec8_t.shape[0])
-    q = q.float()
-    q_sq = torch.sum(q * q, dim=-1)
-    # the cached path has the norms in hand: clamp qs below max(norm)/vcap
-    vcap, _ = _pack_caps(seg, dec8_t.shape[0])
-    q2s, qs = _fold_queries(q, srow, torch.amax(norm_col), vcap)
+    with span("adc.prep"):
+        q = q.float()
+        q_sq = torch.sum(q * q, dim=-1)
+        # the cached path has the norms in hand: clamp qs below
+        # max(norm)/vcap
+        vcap, _ = _pack_caps(seg, dec8_t.shape[0])
+        q2s, qs = _fold_queries(q, srow, torch.amax(norm_col), vcap)
     segpack, tiletop = adc_segmin_cached(q2s, qs, dec8_t, norm_col,
                                          n_valid, tile_n, seg)
     return _select_tiletop(segpack, tiletop, qs, q_sq, q.shape[0], k,

@@ -44,6 +44,7 @@ from cvt_tpu_torch.ops.kernels import _build
 from cvt_tpu_torch.ops.kernels.adc_scan import (SMEM_LIMIT, _fold_queries,
                                                 _quantize_codebooks)
 from cvt_tpu_torch.ops.topk import top_k_smallest
+from cvt_tpu_torch.utils.profile import span
 
 BIG = 3.4e38
 _ROWS = 128                  # rows per CUDA block: lp must be a multiple
@@ -185,31 +186,33 @@ def ivf_pages_segmin(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int, seg: int,
     Arguments as `ivf_pages_segmin_plain`. Tensors on the CPU run the
     twin; tensors on the card launch `ivf_page_kernel` (counted in
     `ivf_pages_segmin.launches`), which reads n_live on the device, so
-    nothing waits on the host; any other device raises."""
-    if ivf_pages_segmin.recorded is not None:
-        ivf_pages_segmin.recorded.append((q2s, qs, dec8_t, nrm_col, cip, sel,
-                                          lp, seg, n_live))
-    if q2s.device.type == "cpu":
-        return ivf_pages_segmin_plain(q2s, qs, dec8_t, nrm_col, cip, sel,
-                                      lp, seg, n_live)
-    if q2s.device.type != "cuda":
-        raise ValueError(f"no ivf_page kernel for {q2s.device}")
-    _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp, seg, n_live)
-    bpad, d = q2s.shape
-    _, marker = _ivf_pack_caps(seg, d)
-    s = sel.shape[0]
-    segpack = torch.empty((s * (lp // seg), bpad), dtype=torch.int32,
-                          device=q2s.device)
-    lib = _build.load()
-    with torch.cuda.device(q2s.device):
-        _build.check(lib, lib.cvt_ivf_pages_segmin(
-            sel.data_ptr(), None if n_live is None else n_live.data_ptr(),
-            qs.data_ptr(), dec8_t.data_ptr(),
-            nrm_col.data_ptr(), cip.data_ptr(), q2s.data_ptr(), s,
-            dec8_t.shape[1], d, bpad, lp, seg, marker, segpack.data_ptr(),
-            torch.cuda.current_stream().cuda_stream), "ivf_pages_segmin")
-    ivf_pages_segmin.launches += 1
-    return segpack
+    nothing waits on the host; any other device raises. Traced, the call
+    is one `kernel.ivf_page` span."""
+    with span("kernel.ivf_page"):
+        if ivf_pages_segmin.recorded is not None:
+            ivf_pages_segmin.recorded.append((q2s, qs, dec8_t, nrm_col, cip,
+                                              sel, lp, seg, n_live))
+        if q2s.device.type == "cpu":
+            return ivf_pages_segmin_plain(q2s, qs, dec8_t, nrm_col, cip, sel,
+                                          lp, seg, n_live)
+        if q2s.device.type != "cuda":
+            raise ValueError(f"no ivf_page kernel for {q2s.device}")
+        _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp, seg, n_live)
+        bpad, d = q2s.shape
+        _, marker = _ivf_pack_caps(seg, d)
+        s = sel.shape[0]
+        segpack = torch.empty((s * (lp // seg), bpad), dtype=torch.int32,
+                              device=q2s.device)
+        lib = _build.load()
+        with torch.cuda.device(q2s.device):
+            _build.check(lib, lib.cvt_ivf_pages_segmin(
+                sel.data_ptr(), None if n_live is None else n_live.data_ptr(),
+                qs.data_ptr(), dec8_t.data_ptr(),
+                nrm_col.data_ptr(), cip.data_ptr(), q2s.data_ptr(), s,
+                dec8_t.shape[1], d, bpad, lp, seg, marker, segpack.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), "ivf_pages_segmin")
+        ivf_pages_segmin.launches += 1
+        return segpack
 
 
 ivf_pages_segmin.launches = 0
@@ -268,85 +271,92 @@ def ivf_union_search(q, centroids, dec8_t, dec16_rm, srow16, nrm_col,
     dev = q.device
 
     # ---- probe selection + page union ------------------------------------
-    coarse_ip, q_sq, probes = coarse_probes(q, centroids, nprobe)
-    # which cells each query probed: a [B, Kc] table, gathered below in
-    # place of comparing every cell with every probe
-    probed_bk = torch.zeros((b, kc), dtype=torch.bool, device=dev)
-    probed_bk.scatter_(1, probes, True)
-    probed = probed_bk.any(0)
-    cell_ok = seg_cell >= 0
-    seg_probed = cell_ok & probed[seg_cell.clamp(0, kc - 1)]
-    page_probed = seg_probed.view(n_pages, spt).any(1)
-    s_max = min(max_pages, n_pages)
-    sel, live, n_live = _select_pages(page_probed, s_max)
-    n_dropped = torch.clamp_min(n_live[0] - s_max, 0)
+    with span("ivf.probe"):
+        coarse_ip, q_sq, probes = coarse_probes(q, centroids, nprobe)
+        # which cells each query probed: a [B, Kc] table, gathered below
+        # in place of comparing every cell with every probe
+        probed_bk = torch.zeros((b, kc), dtype=torch.bool, device=dev)
+        probed_bk.scatter_(1, probes, True)
+        probed = probed_bk.any(0)
+        cell_ok = seg_cell >= 0
+        seg_probed = cell_ok & probed[seg_cell.clamp(0, kc - 1)]
+        page_probed = seg_probed.view(n_pages, spt).any(1)
+        s_max = min(max_pages, n_pages)
+        sel, live, n_live = _select_pages(page_probed, s_max)
+        n_dropped = torch.clamp_min(n_live[0] - s_max, 0)
 
     # ---- per-segment coarse correction rows [S*spt, B] -------------------
-    sel_segs = sel[:, None].long() * spt + torch.arange(spt, device=dev)
-    cells = seg_cell[sel_segs.reshape(-1)]                       # [S*spt]
-    cells_c = cells.clamp(0, kc - 1).long()
-    cip = -2.0 * (q @ centroids[cells_c].T).T                    # [S*spt, B]
-    c0 = torch.amin(torch.where(cells[:, None] >= 0, cip, BIG), dim=0)
-    cipz = cip - c0[None, :]
-    if exact_probe:
-        hit = probed_bk[:, cells_c].T & (cells >= 0)[:, None]
-        cipz = torch.where(hit, cipz, BIG)
-    dead = (cells < 0) | ~live.repeat_interleave(spt)
-    cipz = torch.where(dead[:, None], BIG, cipz)
+    with span("ivf.coarse_terms"):
+        sel_segs = sel[:, None].long() * spt + torch.arange(spt, device=dev)
+        cells = seg_cell[sel_segs.reshape(-1)]                   # [S*spt]
+        cells_c = cells.clamp(0, kc - 1).long()
+        cip = -2.0 * (q @ centroids[cells_c].T).T                # [S*spt, B]
+        c0 = torch.amin(torch.where(cells[:, None] >= 0, cip, BIG), dim=0)
+        cipz = cip - c0[None, :]
+        if exact_probe:
+            hit = probed_bk[:, cells_c].T & (cells >= 0)[:, None]
+            cipz = torch.where(hit, cipz, BIG)
+        dead = (cells < 0) | ~live.repeat_interleave(spt)
+        cipz = torch.where(dead[:, None], BIG, cipz)
 
     # ---- query fold with marker-safe qs clamps ---------------------------
-    # the clamps reach _fold_queries before q2s is quantized, so ip,
-    # norm_i and cip_i share one unit
-    max_nrm = torch.amax(torch.where(nrm_col < BIG / 2, nrm_col, 0.0))
-    max_cip = torch.amax(torch.where(cipz < BIG / 2, cipz, 0.0))
-    qs_min = torch.maximum(max_nrm / nvcap, max_cip / (127 * 127 * d))
-    q2s, qs = _fold_queries(q, srow, qs_min, 1)
-    # the kernel's block spans the padded batch: padded query columns are
-    # masked and dropped by segpack.T[:b]
-    cip_pad = F.pad(cipz, (0, q2s.shape[0] - b), value=BIG)
+    with span("ivf.fold"):
+        # the clamps reach _fold_queries before q2s is quantized, so ip,
+        # norm_i and cip_i share one unit
+        max_nrm = torch.amax(torch.where(nrm_col < BIG / 2, nrm_col, 0.0))
+        max_cip = torch.amax(torch.where(cipz < BIG / 2, cipz, 0.0))
+        qs_min = torch.maximum(max_nrm / nvcap, max_cip / (127 * 127 * d))
+        q2s, qs = _fold_queries(q, srow, qs_min, 1)
+        # the kernel's block spans the padded batch: padded query columns
+        # are masked and dropped by segpack.T[:b]
+        cip_pad = F.pad(cipz, (0, q2s.shape[0] - b), value=BIG).contiguous()
     # the fill slots are skipped: their keys (INT32_MAX) rank after every
     # live segment's, valid or masked, so the k+slack winners below are
     # those of a scan of every slot
-    segpack = ivf_pages_segmin(q2s, qs.reshape(1), dec8_t, nrm_col,
-                               cip_pad.contiguous(), sel, lp, seg, n_live)
+    segpack = ivf_pages_segmin(q2s, qs.reshape(1), dec8_t, nrm_col, cip_pad,
+                               sel, lp, seg, n_live)
 
     # ---- phase 2: exact f32 rescore of the winning segments --------------
-    n_take = min(k + slack, segpack.shape[0])
-    # f32 keys, as cvt_tpu ranks them; nearby large keys tie in f32 and the
-    # stable sort breaks ties toward the lower index like lax.top_k
-    _, seg_sel = top_k_smallest(segpack.T[:b].float(), n_take)  # [B, S2]
-    # fill slots must not re-enter here
-    slot_of = seg_sel // spt
-    slot_live = (slot_of < n_live)[:, :, None].expand(b, n_take, seg)
-    slot_live = slot_live.reshape(b, n_take * seg)
-    gseg = sel.long()[slot_of.clamp(0, s_max - 1)] * spt + seg_sel % spt
-    rows = (gseg[:, :, None] * seg
-            + torch.arange(seg, device=dev)[None, None, :]
-            ).reshape(b, n_take * seg)                           # [B, C]
-    rows = rows.clamp(0, n_rows - 1)
-    vec_ids = rowids[rows]                                       # [B, C]
-    cells_r = seg_cell[rows // seg]                              # [B, C]
-    cells_rc = cells_r.clamp(0, kc - 1).long()
-    dec_c = dec16_rm[rows].float()                               # [B, C, D]
-    qf = q * srow16[None, :]
-    ip = torch.sum(dec_c * qf[:, None, :], dim=-1)               # <q, resid>
-    cipv = -2.0 * torch.gather(coarse_ip, 1, cells_rc)
-    nrm_c = nrm_col[rows, 0] + dsq_min
-    dist = q_sq[:, None] + nrm_c + cipv - 2.0 * ip
-    okc = (vec_ids >= 0) & (cells_r >= 0) & (nrm_c < BIG / 2) & slot_live
-    if exact_probe:
-        okc &= torch.gather(probed_bk, 1, cells_rc)
-    dist = torch.where(okc, dist, float("inf"))
-    k_eff = min(k, dist.shape[1])       # tiny index: pool may be < k
-    out_d, j = top_k_smallest(dist, k_eff)
-    ids = torch.gather(vec_ids, 1, j)
-    ok = torch.isfinite(out_d)
-    out_d = torch.where(ok, out_d, float("inf"))
-    ids = torch.where(ok, ids, -1)
-    if k_eff < k:                       # honor the [B, k] contract
-        out_d = F.pad(out_d, (0, k - k_eff), value=float("inf"))
-        ids = F.pad(ids, (0, k - k_eff), value=-1)
-    return out_d, ids, n_dropped
+    with span("ivf.rescore"):
+        n_take = min(k + slack, segpack.shape[0])
+        # f32 keys, as cvt_tpu ranks them; nearby large keys tie in f32 and
+        # the stable sort breaks ties toward the lower index like lax.top_k
+        _, seg_sel = top_k_smallest(segpack.T[:b].float(), n_take)  # [B, S2]
+        # fill slots must not re-enter here
+        slot_of = seg_sel // spt
+        slot_live = (slot_of < n_live)[:, :, None].expand(b, n_take, seg)
+        slot_live = slot_live.reshape(b, n_take * seg)
+        gseg = sel.long()[slot_of.clamp(0, s_max - 1)] * spt + seg_sel % spt
+        rows = (gseg[:, :, None] * seg
+                + torch.arange(seg, device=dev)[None, None, :]
+                ).reshape(b, n_take * seg)                       # [B, C]
+        rows = rows.clamp(0, n_rows - 1)
+        vec_ids = rowids[rows]                                   # [B, C]
+        cells_r = seg_cell[rows // seg]                          # [B, C]
+        cells_rc = cells_r.clamp(0, kc - 1).long()
+        dec_c = dec16_rm[rows].float()                           # [B, C, D]
+        qf = q * srow16[None, :]
+        ip = torch.sum(dec_c * qf[:, None, :], dim=-1)           # <q, resid>
+        cipv = -2.0 * torch.gather(coarse_ip, 1, cells_rc)
+        nrm_c = nrm_col[rows, 0] + dsq_min
+        dist = q_sq[:, None] + nrm_c + cipv - 2.0 * ip
+        okc = (vec_ids >= 0) & (cells_r >= 0) & (nrm_c < BIG / 2) & slot_live
+        if exact_probe:
+            okc &= torch.gather(probed_bk, 1, cells_rc)
+        dist = torch.where(okc, dist, float("inf"))
+
+    # ---- final top-k -----------------------------------------------------
+    with span("ivf.select"):
+        k_eff = min(k, dist.shape[1])       # tiny index: pool may be < k
+        out_d, j = top_k_smallest(dist, k_eff)
+        ids = torch.gather(vec_ids, 1, j)
+        ok = torch.isfinite(out_d)
+        out_d = torch.where(ok, out_d, float("inf"))
+        ids = torch.where(ok, ids, -1)
+        if k_eff < k:                       # honor the [B, k] contract
+            out_d = F.pad(out_d, (0, k - k_eff), value=float("inf"))
+            ids = F.pad(ids, (0, k - k_eff), value=-1)
+        return out_d, ids, n_dropped
 
 
 def build_page_layout(codes, assign, dsq, codebooks, *, lp: int = 512,

@@ -9,10 +9,10 @@ from cvt_tpu_torch.utils.log import (CheckError, LRUCache, check, check_eq,
 from cvt_tpu_torch.utils.metrics import auc, recall_at_k
 from cvt_tpu_torch.utils.profile import (chained_time,
                                          measure_launch_overhead, roofline,
-                                         trace)
+                                         span, trace)
 from cvt_tpu_torch.utils.timer import Timer
 
-__all__ = ["recall_at_k", "auc", "Timer", "trace", "chained_time",
+__all__ = ["recall_at_k", "auc", "Timer", "trace", "span", "chained_time",
            "roofline", "measure_launch_overhead", "resolve_device",
            "CheckError", "LRUCache", "check", "check_eq", "check_ge",
            "check_gt", "check_le", "check_lt", "check_ne", "check_option",

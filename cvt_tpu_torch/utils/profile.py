@@ -6,6 +6,9 @@ The reference instruments with ad-hoc wall-clock prints
   * `trace(logdir)` — context manager over torch.profiler (CPU and, where
     there is a card, CUDA activities), writing a TensorBoard trace of
     every operator and kernel into `logdir`;
+  * `span(name)` — a named host range around one stage of the port,
+    recorded into the running torch.profiler's own trace beside its
+    kernels and copies, and a shared no-op while none runs;
   * `chained_time(fn, stack)` — steady-state seconds per iteration of
     `fn` over `stack`'s leading axis, the iterations launched back to
     back between two CUDA events with one synchronize at the end (the
@@ -30,8 +33,14 @@ import time
 from dataclasses import dataclass
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from cvt_tpu_torch.utils.device import resolve_device
+
+try:
+    from torch._C._profiler import _RecordFunctionFast
+except ImportError:          # an older torch: spans are never recorded
+    _RecordFunctionFast = None
 
 # H100 SXM data sheet: dense int8 tensor-core rate, HBM3 bandwidth
 PEAK_INT8_OPS, HBM_BYTES_PER_S = 1.979e15, 3.35e12
@@ -49,6 +58,29 @@ def trace(logdir: str):
     with profile(activities=acts,
                  on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
         yield prof
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """Context manager naming one stage of the port in a profiler trace.
+
+    While a torch.profiler records, it enters a FUNCTION-scope range (the
+    kind an aten operator gets): it lands on the host line of the trace
+    that holds every kernel and copy, on the clock of the host operators
+    and runtime calls, and it gets no mirror interval on the device line
+    (a `record_function` range gets one). Otherwise it returns one shared
+    no-op context, at well under a microsecond a span. The test is
+    torch's own process-wide "profiler started" flag (a module attribute,
+    cheaper to read than the per-thread `_profiler_enabled()` call), so a
+    span on another host thread records whenever the profiler records
+    that thread (`profile_all_threads`). A span's parent is the span that
+    encloses it on the same host thread."""
+    if _RecordFunctionFast is None or \
+            not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _RecordFunctionFast(name)
 
 
 def chained_time(fn, stack, *, consts=(), warmup: bool = True) -> float:
