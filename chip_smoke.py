@@ -44,7 +44,12 @@
    arguments (n_live as search_fast passes it), and times (CUDA events)
    of search_fast, search() and the kernel beside its twin; the kernel
    also on one batch's arguments at nprobe 8 and 64, each with its live
-   slot count.
+   slot count. Phase 2: `ivf_rescore_kernel` against its twin on one
+   batch's own arguments at each nprobe (and at k 100 at nprobe 16); at
+   the benchmark IVF cell's shape (one search_fast batch of 4,096 queries
+   at nprobe 16) also both timed, beside its bound in bytes (segpack's
+   live rows once, the winning int16 rows once, at most the index's
+   rows); every search_fast of the path must have launched it.
 8. The int8 SQ lane (BASELINE config 1) on the same base and queries,
    L2-normalised: exact ground truth (FlatIndex, 2,048 queries) ->
    ScalarQuantizer.train / encode on the card (codes/s) ->
@@ -318,8 +323,11 @@
 Every ADC kernel-against-twin check demands segpack and tiletop bitwise
 equal, except that a row whose norm/qs lies within 1e-4 of a half-integer
 may move its key by seg (float32 summation order); such rows are counted
-and printed. The IVF kernel sums no floats, so it must equal its twin
-bitwise everywhere. Any failure raises, so the exit code is non-zero and
+and printed. The IVF page kernel sums no floats, so it must equal its
+twin bitwise everywhere. The IVF rescore kernel ranks segments exactly
+and sums each row's float32 products in another order than its twin:
+`compare_rescore_kernel` holds it to that sum's error bound, ids equal
+but at near-ties within it. Any failure raises, so the exit code is non-zero and
 no result is printed.
 """
 
@@ -338,10 +346,11 @@ import numpy as np
 import torch
 
 from cvt_tpu_torch.ops.kernels import (compare_ivf_kernel,
-                                       compare_kernel_to_twin, launch_counts,
+                                       compare_kernel_to_twin,
+                                       compare_rescore_kernel, launch_counts,
                                        recorded_args, zero_launch_counts)
-from cvt_tpu_torch.utils.profile import (adc_bound, card_line, ivf_bound,
-                                         live_slots)
+from cvt_tpu_torch.utils.profile import (HBM_BYTES_PER_S, adc_bound,
+                                         card_line, ivf_bound, live_slots)
 
 SEED = 0
 N_DB, N_QUERIES, N_TRAIN, N_REC = 1_000_000, 8192, 131_072, 2048
@@ -349,9 +358,11 @@ D, M, KSUB, K = 128, 8, 256, 10
 DEV = "cuda"
 KERNEL_SRC = "cvt_tpu_torch/csrc/adc_scan.cu"
 IVF_SRC = "cvt_tpu_torch/csrc/ivf_scan.cu"
+RESCORE_SRC = "cvt_tpu_torch/csrc/ivf_rescore.cu"
 # IVF-ADC at the reference operating point (_bench_ivf.py:63-64's training)
 IVF_KC, IVF_M, IVF_SAMPLE, IVF_ITERS, IVF_B = 8192, 16, 262_144, 10, 256
 IVF_NPROBES, IVF_REF_NPROBE = (8, 16, 64), 16
+IVF_CELL_B = 4096        # the benchmark's IVF cell: batches of 4,096
 SEG_VARIANTS = (64, 32, 16, 8)
 # the serving front end (BASELINE config 5) on one card
 SERVE_B, KM_N, KM_K, CLI_STDIN_ROWS = 1024, 65_536, 256, 4
@@ -873,6 +884,7 @@ def phase_ivf(base_dev, q_dev, gt) -> dict:
 
     n = idx.ntotal
     V.ivf_pages_segmin.launches = 0
+    V.ivf_rescore.launches = 0
     for nprobe in IVF_NPROBES:
         d, i, dropped = ivf_batches(
             idx, q_dev, lambda x, q: fast_batch(x, q, nprobe))
@@ -884,12 +896,15 @@ def phase_ivf(base_dev, q_dev, gt) -> dict:
         q, K, nprobe=IVF_REF_NPROBE))
     torch.cuda.synchronize()
     res["launches"] = V.ivf_pages_segmin.launches
+    res["rescore_launches"] = V.ivf_rescore.launches
     check_ids(d, i, n, "search")
     res["recall_at_10_ref"] = recall_at_k(i, gt, k=10)
     res["recall_at_1_ref"] = recall_at_k(i, gt, k=1)
     res["parity_pt"] = 100 * (res["recall_at_10_ref"]
                               - res[f"recall_at_10_fast_{IVF_REF_NPROBE}"])
     assert res["launches"] > 0, "the ivf_page kernel never launched"
+    assert res["rescore_launches"] == res["launches"], \
+        "search_fast ran phase 2 without the ivf_rescore kernel"
     for nprobe in IVF_NPROBES:
         assert res[f"n_dropped_{nprobe}"] == 0, nprobe
     assert abs(res["parity_pt"]) <= 1.0, res["parity_pt"]
@@ -919,6 +934,48 @@ def phase_ivf_timing(idx, q_dev, args_by_nprobe, reps: int) -> dict:
     out["ivf_page_ms"] = out[f"ivf_page_{IVF_REF_NPROBE}_ms"]
     out["ivf_page_plain_ms"] = cuda_ms(lambda: V.ivf_pages_segmin_plain(
         *args_by_nprobe[IVF_REF_NPROBE]), 2)
+    return out
+
+
+def rescore_bound(args) -> dict:
+    """Bound of one `ivf_rescore` call, in bytes: segpack's live rows read
+    once for every query, the winning segments' rows (D int16, an id and a
+    norm each) read once, at most every row of the index however many
+    queries share them, the answers written. Its float32 products (2 B C D
+    FLOP, 0.5 GFLOP at the IVF cell) take under a tenth of that at 67
+    TFLOP/s."""
+    segpack, n_live, sel, q = args[0], args[1], args[2], args[9]
+    seg, k, slack = args[13], args[14], args[15]
+    b, d = q.shape
+    n_rows = args[5].shape[0]
+    live_rows = min(int(n_live), sel.shape[0]) * (segpack.shape[0]
+                                                  // sel.shape[0])
+    c = min(k + slack, segpack.shape[0]) * seg
+    nb = (4 * live_rows * b + min(b * c, n_rows) * (2 * d + 8)
+          + 8 * b * k)
+    return {"bound_ms": nb / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "ops": 2.0 * b * c * d, "bytes": nb}
+
+
+def main_path_rescore_args(idx, q_dev, nprobe: int, k: int = K):
+    """The ivf_rescore kernel's arguments in one search_fast batch of
+    IVF_B queries at nprobe, as the wrapper receives them."""
+    return recorded_args("ivf_rescore", lambda: idx.search_fast(
+        q_dev[:IVF_B], k, nprobe=nprobe))
+
+
+def phase_ivf_rescore(idx, q_dev, reps: int) -> dict:
+    """Step 7's phase 2 at the benchmark IVF cell's shape (B 4,096, nprobe
+    16): the ivf_rescore kernel against its twin on one search_fast
+    batch's own arguments, both timed (CUDA events), and the bound."""
+    from cvt_tpu_torch.ops.kernels import ivf_scan as V
+    args = recorded_args("ivf_rescore", lambda: idx.search_fast(
+        q_dev[:IVF_CELL_B], K, nprobe=IVF_REF_NPROBE))
+    out = {"cmp": compare_rescore_kernel(args),
+           "segments": args[0].shape[0], "n_live": int(args[1])}
+    out["ms"] = cuda_ms(lambda: V.ivf_rescore(*args), reps)
+    out["plain_ms"] = cuda_ms(lambda: V.ivf_rescore_plain(*args), 3)
+    out["bound"] = share(out["ms"], rescore_bound(args))
     return out
 
 
@@ -4774,6 +4831,27 @@ def main() -> int:
                     f"{ivf_bp[p]['live_slots']} live of "
                     f"{ivf_bp[p]['slots']} page slots)", ivf_bp[p], stamp)
     ivf_b = ivf_bp[IVF_REF_NPROBE]
+    rescore_cmp = {f"b{IVF_B}_np{p}_k{K}": compare_rescore_kernel(
+        main_path_rescore_args(ivf_idx, q_dev, p)) for p in IVF_NPROBES}
+    rescore_cmp[f"b{IVF_B}_np{IVF_REF_NPROBE}_k100"] = compare_rescore_kernel(
+        main_path_rescore_args(ivf_idx, q_dev, IVF_REF_NPROBE, k=100))
+    for name, c in rescore_cmp.items():
+        print(f"kernel vs twin, ivf_rescore on the IVF main path's arguments "
+              f"({name}): max|diff| {c['max_abs_err']:.3g} "
+              f"({c['max_err_share_of_tol']:.3f} of its tolerance), "
+              f"{c['ids_differ']} ids differ at near-ties (query, slot, "
+              f"kernel id, twin id): {c['differ']} {stamp}")
+    rs = phase_ivf_rescore(ivf_idx, q_dev, reps=10)
+    rb = rs["bound"]
+    print(f"ivf_rescore at the IVF cell's shape (B {IVF_CELL_B}, nprobe "
+          f"{IVF_REF_NPROBE}, {rs['segments']} segment rows, n_live "
+          f"{rs['n_live']}): kernel {rs['ms']:.3f} ms, twin "
+          f"{rs['plain_ms']:.3f} ms; bound {rb['bound_ms']:.3f} ms (bytes: "
+          f"{rb['bytes'] / 1e6:.1f} MB), {rb['bound_share']:.1%} of it; "
+          f"against the twin max|diff| {rs['cmp']['max_abs_err']:.3g} "
+          f"({rs['cmp']['max_err_share_of_tol']:.3f} of its tolerance), "
+          f"{rs['cmp']['ids_differ']} ids differ at near-ties: "
+          f"{rs['cmp']['differ']} {stamp}")
 
     sq = run_sq(base_dev, q_dev, stamp)
     sv = run_serving(idx, q_dev, gt, ids_ref, base_dev, stamp)
@@ -4900,13 +4978,26 @@ def main() -> int:
               by_path={"ivf": path(ivf_b)},
               by_nprobe={str(p): dict(path(b), live_slots=b["live_slots"])
                          for p, b in ivf_bp.items()},
-              sass=sass_of("ivf_page_kernel"))]
+              sass=sass_of("ivf_page_kernel")),
+        entry("ivf_rescore", RESCORE_SRC,
+              "none: cvt_tpu's IVF phase 2 is jnp (ivf_union_search in "
+              "cvt_tpu/ops/pallas/ivf_scan.py)", iv["rescore_launches"],
+              max(rs["cmp"]["max_abs_err"],
+                  *(c["max_abs_err"] for c in rescore_cmp.values())),
+              rs["ms"], rs["plain_ms"], rb,
+              ids_differ={f"b{IVF_CELL_B}_np{IVF_REF_NPROBE}_k{K}":
+                          rs["cmp"]["ids_differ"],
+                          **{n: c["ids_differ"]
+                             for n, c in rescore_cmp.items()}},
+              launches_by_path={"ivf": iv["rescore_launches"]},
+              by_path={f"ivf_b{IVF_CELL_B}": path(rb)})]
 
     # step 27 last, with every tensor of steps 1-26 dropped, so that the
     # bench's process has the card to itself
     del (rand_dec, rand_cached, rand_norm, idx, q_dev, base_dev, gt,
          ids_ref, dec_args, cached_args, ivf_idx, ivf_by_p, ivf_args, res,
-         iv, sq, sv, feat, match, recon, apps, arc, em, prof, mp, bp, ap)
+         iv, rs, rescore_cmp, sq, sv, feat, match, recon, apps, arc, em,
+         prof, mp, bp, ap)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"before step 27 this process holds "

@@ -348,8 +348,9 @@ class IVFADCIndex:
                     exact_probe: bool = True):
         """Union-probe page scan (the production query path): the same
         nprobe semantics as search(), scored decode-free by the `ivf_page`
-        kernel on the card (its twin on the CPU). Returns (dists [B, k],
-        ids [B, k], n_dropped_pages).
+        kernel on the card (its twin on the CPU), phase 2 by the
+        `ivf_rescore` kernel there. Returns (dists [B, k], ids [B, k],
+        n_dropped_pages).
 
         Traced, the call is one `ivf.search` span holding `ivf.stage_in`
         (the queries to the index's device) and the stages of

@@ -3,7 +3,8 @@ wrappers and their plain PyTorch twins.
 
 Here: each wrapper's launch count, the arguments a call hands a wrapper
 (`recorded_args`), and a kernel held against its twin on them
-(`compare_kernel_to_twin`, `compare_ivf_kernel`, `twin_check`)."""
+(`compare_kernel_to_twin`, `compare_ivf_kernel`,
+`compare_rescore_kernel`, `twin_check`)."""
 
 import torch
 
@@ -13,7 +14,8 @@ def wrappers() -> dict:
     from cvt_tpu_torch.ops.kernels import adc_scan, ivf_scan
     return {"adc_segmin": adc_scan.adc_segmin,
             "adc_segmin_cached": adc_scan.adc_segmin_cached,
-            "ivf_page": ivf_scan.ivf_pages_segmin}
+            "ivf_page": ivf_scan.ivf_pages_segmin,
+            "ivf_rescore": ivf_scan.ivf_rescore}
 
 
 def launch_counts() -> dict:
@@ -84,9 +86,77 @@ def compare_ivf_kernel(args) -> dict:
     return {"max_abs_err": err, "shape": list(got.shape)}
 
 
+def rescore_tolerance(args) -> torch.Tensor:
+    """[B, 1] bound on |kernel - twin| of an `ivf_rescore` distance on
+    `args`: the twin rounds each product of the inner product and sums them
+    in torch's order, the kernel fuses them and sums in its own, so each
+    is within D * 2^-24 * sum_i |q_i srow16_i dec_i| of the exact sum; the
+    distance takes -2 of it, and a few ulp of its size besides. The sum of
+    |products| is bounded by ||q * srow16|| * the largest row norm."""
+    dec16, srow16, q, q_sq = args[5], args[6], args[9], args[10]
+    u = 2.0 ** -24
+    rows = torch.linalg.vector_norm(dec16.double(), dim=1).amax()
+    qf = torch.linalg.vector_norm(q.double() * srow16.double(), dim=1)
+    size = q_sq.double().abs() + 2 * qf * rows
+    return (4 * q.shape[1] * u * qf * rows + 8 * u * size)[:, None]
+
+
+def compare_rescore_kernel(args) -> dict:
+    """The ivf_rescore kernel against its twin on the same arguments (an
+    `ivf_rescore` call's own): the same slots finite, distances within
+    `rescore_tolerance`, no id twice in a row, and ids equal except at
+    near-ties: where the kernel's id differs from the twin's, the twin's
+    distance of the kernel's id (the twin run over the whole candidate
+    pool) lies within twice the tolerance of that slot's; raise otherwise.
+    Returns the largest error, its share of the tolerance, and the slots
+    whose ids differ as (query, slot, kernel id, twin id)."""
+    from cvt_tpu_torch.ops.kernels import ivf_scan as V
+    got_d, got_i = V.ivf_rescore(*args)
+    want_d, want_i = V.ivf_rescore_plain(*args)
+    tol = rescore_tolerance(args)
+    fin = torch.isfinite(want_d)
+    if not torch.equal(torch.isfinite(got_d), fin):
+        raise AssertionError("ivf_rescore kernel: finite slots differ")
+    if bool((got_i[~fin] != -1).any()):
+        raise AssertionError("ivf_rescore kernel: an id past the pool")
+    err = torch.where(fin, (got_d.double() - want_d.double()).abs(), 0.0)
+    if bool((err > tol).any()):
+        raise AssertionError(f"ivf_rescore kernel: distance off by "
+                             f"{float(err.max())}, over its tolerance")
+    ids = torch.where(fin, got_i, -1).sort(dim=1).values
+    if bool(((ids[:, 1:] == ids[:, :-1]) & (ids[:, 1:] >= 0)).any()):
+        raise AssertionError("ivf_rescore kernel: an id twice in a row")
+    differ = torch.nonzero(got_i != want_i).tolist()
+    if differ:
+        segpack, seg, k, slack = args[0], args[13], args[14], args[15]
+        pool = min(k + slack, segpack.shape[0]) * seg
+        pool_d, pool_i = (x.cpu() for x in V.ivf_rescore_plain(
+            *args[:14], pool, k + slack - pool, *args[16:]))
+        gi, wd, t = got_i.cpu(), want_d.double().cpu(), tol.cpu()
+        for r, c in differ:
+            hit = pool_i[r] == gi[r, c]
+            if not bool(hit.any()):
+                raise AssertionError(f"ivf_rescore kernel: id {int(gi[r, c])}"
+                                     f" at query {r} is not a candidate")
+            gap = (pool_d[r][hit].double() - wd[r, c]).abs().min()
+            if float(gap) > 2 * float(t[r, 0]):
+                raise AssertionError(f"ivf_rescore kernel: id differs from "
+                                     f"its twin's at query {r}, slot {c}, "
+                                     f"not a near-tie")
+    wi = want_i.cpu()
+    return {"max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "max_err_share_of_tol": float((err / tol).max())
+            if err.numel() else 0.0,
+            "ids_differ": len(differ),
+            "differ": [(r, c, int(got_i[r, c]), int(wi[r, c]))
+                       for r, c in differ[:20]],
+            "shape": list(got_i.shape)}
+
+
 def twin_check(name: str, args: tuple) -> dict:
     """Kernel `name` against its twin on `args` (a call's own, as
-    `recorded_args` gives them): `compare_ivf_kernel` for ivf_page, else
+    `recorded_args` gives them): `compare_ivf_kernel` for ivf_page,
+    `compare_rescore_kernel` for ivf_rescore, else
     `compare_kernel_to_twin` with the row norms the kernel scores; raises
     on a difference. The comparison's launch is not one of the path's, so
     it leaves the wrapper's count as it was."""
@@ -96,6 +166,8 @@ def twin_check(name: str, args: tuple) -> dict:
     try:
         if name == "ivf_page":
             return compare_ivf_kernel(args)
+        if name == "ivf_rescore":
+            return compare_rescore_kernel(args)
         if name == "adc_segmin":
             norm = T._row_norms(T.decode_int8(args[2], args[3]), args[4])
             return compare_kernel_to_twin(w, T.adc_segmin_plain, args, norm,

@@ -26,6 +26,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of csrc/*.cu, declared so that ctypes never passes a
 # pointer as a 32-bit int
 _SIGNATURES = {
@@ -38,6 +39,11 @@ _SIGNATURES = {
     # sel, n_live, qs, dec8_t, nrm_col, cip, q2s, n_sel, n_rows, d, bpad,
     # lp, seg, marker, segpack, stream
     "cvt_ivf_pages_segmin": [_P] * 7 + [_I] * 7 + [_P, _P],
+    # segpack, n_live, sel, rowids, seg_cell, dec16, srow16, nrm_col,
+    # dsq_min, q, q_sq, coarse_ip, probed, b, bpad, n_slots, spt, seg,
+    # n_rows, d, kc, n_take, k, exact_probe, nt, n_chunks, chunk_rows,
+    # cand, win, lo, key_g, id_g, out_d, out_i, stream
+    "cvt_ivf_rescore": [_P] * 8 + [_F] + [_P] * 4 + [_I] * 14 + [_P] * 8,
 }
 
 

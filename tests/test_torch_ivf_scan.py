@@ -208,6 +208,11 @@ def _search_both(idx, q, a, c, dq, n, **kw):
     (4096, 10, 8, 64, False),
     (4096, 10, 16, 2, True),          # pages past max_pages are dropped
     (40, 600, 4, 8, True),            # one page: the pool (512) < k
+    (4096, 1, 4, 64, True),
+    (4096, 100, 8, 64, True),         # k + slack 106: above 64
+    (4096, 100, 16, 64, False),
+    (4096, 30, 32, 64, True),         # every cell probed
+    (2048, 20, 4, 64, False),
 ])
 def test_union_search_matches_reference(ivf_layout, n, k, nprobe,
                                         max_pages, exact_probe):

@@ -69,7 +69,8 @@ STAGES = {
              f"+desc({2 * K})"],
     "orient": ["prep(base)", "prep+gathers only", "prep+hist/peaks only",
                "prep+orient full"]}
-NO_LAUNCHES = {"adc_segmin": 0, "adc_segmin_cached": 0, "ivf_page": 0}
+NO_LAUNCHES = {"adc_segmin": 0, "adc_segmin_cached": 0, "ivf_page": 0,
+               "ivf_rescore": 0}
 
 
 @pytest.fixture(autouse=True)
