@@ -6,12 +6,14 @@ its control's, cell by cell on the card.
 
 For each seed, one run of the cell with a short window at the cell's own
 load (the window's whole traffic, its answers sampled as a full run
-samples them), then, with --control, the control of
-`benchmark/reference/control.py` put in the program's place on the same
-sampled queries. One JSON line per seed with both sets of numbers, then a
-summary: the largest of the program's readings (the lower reading) and
-the smallest of the control's (the upper reading). The benchmark's own
-runs never run the control.
+samples them), then, with --control, the control of the configuration's
+kind (`control` in benchmark/kinds/<kind>.py) put in the program's place
+on the same sampled queries. One JSON line per seed with both sets of
+numbers, then a summary: the largest of the program's readings (the lower
+reading) and the smallest of the control's (the upper reading); a
+control's reading named "program_..." is of the program, beside it, and
+is summed up by its largest. The benchmark's own runs never run the
+control.
 """
 
 import os
@@ -22,28 +24,6 @@ sys.path.insert(0, ROOT)
 
 import argparse  # noqa: E402
 import json  # noqa: E402
-
-
-def control_numbers(cfg: dict, traffic: dict):
-    """The control's numbers on the sampled queries, and beside them the
-    program's rank_gap against the plain top k, with no selection (a
-    reading for PERF.md, never a limit)."""
-    import copy
-
-    from benchmark.reference import compare, control
-
-    def after(ref, q, ids, dists):
-        if cfg["quantizer"]["kind"] == "opq":
-            d, i = control.flat_int4(ref, q, traffic["k"])
-        else:
-            d, i = control.ivf_int8(ref, q, traffic["k"], traffic["nprobe"])
-        out = compare.numbers(ref, q, i, d, traffic.get("nprobe"))
-        plain = copy.copy(ref)
-        plain.sel = None
-        out["program_rank_gap_plain"] = compare.numbers(
-            plain, q, ids, dists, traffic.get("nprobe"))["rank_gap"]
-        return out
-    return after
 
 
 def main(argv=None) -> int:
@@ -61,7 +41,11 @@ def main(argv=None) -> int:
     cell = reg.cell(args.workload)
     cfg = reg.config(cell["config"])
     traffic = reg.traffic(cell["traffic"])
-    after = control_numbers(cfg, traffic) if args.control else None
+    kind = reg.kind(harness.kind_name(cfg))
+    after = None
+    if args.control:
+        def after(ref, pool, win, dev):
+            return kind.control(ref, cfg, traffic, pool, win, dev)
     program, ctrl = [], []
     for seed in (int(s) for s in args.seeds.split(",")):
         result, info = harness.run_cell(args.workload, seed, args.seconds,
@@ -81,9 +65,9 @@ def main(argv=None) -> int:
     summary = {"lower": {k: max(p[k] for p in program) for k in program[0]}}
     if ctrl:
         summary["upper"] = {k: min(c[k] for c in ctrl) for k in ctrl[0]
-                            if k != "program_rank_gap_plain"}
-        summary["program_rank_gap_plain"] = max(
-            c["program_rank_gap_plain"] for c in ctrl)
+                            if not k.startswith("program_")}
+        summary.update({k: max(c[k] for c in ctrl) for k in ctrl[0]
+                        if k.startswith("program_")})
     print(json.dumps({"workload": args.workload, **summary}), flush=True)
     return 0
 

@@ -32,6 +32,12 @@ def seed_for(seed: int, tag: str) -> int:
     return int.from_bytes(h[:8], "little") >> 1
 
 
+def sync(dev) -> None:
+    """Wait for the device's queued work (a timing's end)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def generator(seed: int, tag: str, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed_for(seed, tag))
 

@@ -7,6 +7,18 @@ gives it:
 
   * BENCHMARK.json `workloads[name]` -> its `config` and `traffic`;
   * BENCHMARK.json `configs[config].file` -> the deployment's sizes;
+  * benchmark/kinds/<kind>.py -> the configuration's kind (its "kind",
+    else "adc"): what the deployment loads, its query pool, its plain
+    reference and the numbers that decide `correct`, as five functions:
+      inputs(cfg, seed, dev) -> (inputs, info), made from the seed by
+        plain code, with the seconds each part took;
+      query_pool(cfg, traffic, seed, dev), which the traffic's loop
+        slices (it needs `shape[0]` and slicing);
+      reference(cfg, inputs), with nothing of the port;
+      numbers(ref, cfg, traffic, pool, win, dev) -> dict, keyed as the
+        cell's limits, the window's own counts among them;
+      informative(ref, inputs, pool, win, dev) -> dict, printed, never
+        compared;
   * benchmark/traffic/<traffic>.json -> the mix, read by `generator`;
   * benchmark/systems/<system>.py -> how the port is built and called
     (the mix's "system", else the configuration's "index");
@@ -32,7 +44,6 @@ import numpy as np
 import torch
 
 from benchmark import data, generator
-from benchmark.reference import adc, compare
 from benchmark.trace import Tracer, busy_seconds, idle_gaps, op_seconds, top
 from benchmark.trace import window as trace_window
 
@@ -110,6 +121,10 @@ class Registry:
     def limits(self, cell: str) -> dict:
         return self._json("workloads", cell + ".json")["limits"]
 
+    def kind(self, name: str):
+        return _load_file(os.path.join(self.dir, "kinds", name + ".py"),
+                          f"benchmark_kind_{name}")
+
     def system(self, name: str):
         return _load_file(os.path.join(self.dir, "systems", name + ".py"),
                           f"benchmark_system_{name}")
@@ -131,49 +146,16 @@ class Registry:
                           "benchmark_metric_" + metric.replace(".", "_"))
 
 
+def kind_name(cfg: dict) -> str:
+    return cfg.get("kind", "adc")
+
+
 def make_inputs(cfg: dict, seed: int, dev) -> tuple[dict, dict]:
-    """The base vectors and the trained quantizer, and the seconds each
-    took."""
-    t = time.perf_counter()
-    base = data.base_vectors(seed, cfg["n"], cfg["dim"], dev)
-    _sync(dev)
-    t_data = time.perf_counter() - t
-    q = cfg["quantizer"]
-    if q["kind"] == "opq":
-        rot, cb = data.flat_quantizer(seed, base, q)
-        inputs = {"base": base, "rotation": rot, "codebooks": cb}
-    else:
-        cent, cb = data.ivf_quantizer(seed, base, q)
-        inputs = {"base": base, "centroids": cent, "codebooks": cb}
-    _sync(dev)
-    return inputs, {"data_s": t_data,
-                    "quantizer_s": time.perf_counter() - t - t_data}
-
-
-def _sync(dev) -> None:
-    if torch.device(dev).type == "cuda":
-        torch.cuda.synchronize(dev)
+    return Registry().kind(kind_name(cfg)).inputs(cfg, seed, dev)
 
 
 def reference(cfg: dict, inputs: dict):
-    if cfg["quantizer"]["kind"] == "opq":
-        return adc.FlatADC(inputs["base"], inputs["rotation"],
-                           inputs["codebooks"], cfg.get("selection"))
-    return adc.IVFADC(inputs["base"], inputs["centroids"],
-                      inputs["codebooks"])
-
-
-def check_numbers(ref, traffic: dict, pool: np.ndarray, win, dev) -> dict:
-    """The numbers of `compare.numbers` on the window's sample, and the
-    window's own counts of what never came or was cut."""
-    out = {"unanswered": win.failed, "dropped_pages": win.dropped_pages}
-    if win.sample_rows is None:
-        return out
-    q = torch.as_tensor(pool[win.sample_rows], device=dev)
-    ids = torch.as_tensor(win.sample_ids, device=dev).long()
-    dists = torch.as_tensor(win.sample_dists, device=dev)
-    out.update(compare.numbers(ref, q, ids, dists, traffic.get("nprobe")))
-    return out
+    return Registry().kind(kind_name(cfg)).reference(cfg, inputs)
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
@@ -183,10 +165,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     for the earlier lines). `overrides` ({"config": ..., "traffic": ...})
     shrink a cell for a test on the CPU; `fault(system)`, when given,
     breaks the system under test after its set-up (the tests' faults);
-    `after(ref, queries, ids, dists)`, when given, is called with the
-    reference, the sample's queries and the program's answers to them,
-    and what it returns goes to the information under "after" (the
-    controls' readings, benchmark/calibrate.py)."""
+    `after(ref, pool, win, dev)`, when given, is called with the
+    reference, the query pool and the window, and what it returns goes to
+    the information under "after" (the controls' readings,
+    benchmark/calibrate.py)."""
     overrides = overrides or {}
     started = process_age()
     reg = Registry(root)
@@ -194,6 +176,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     cfg = _merge(reg.config(cell["config"]), overrides.get("config"))
     traffic = _merge(reg.traffic(cell["traffic"]), overrides.get("traffic"))
     limits = reg.limits(name)
+    kind = reg.kind(kind_name(cfg))
     sysmod = reg.system(traffic.get("system", cfg["index"]))
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -201,14 +184,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     torch.backends.cudnn.allow_tf32 = False
     seed = int(seed) % 2 ** 63
 
-    inputs, info = make_inputs(cfg, seed, dev)
+    inputs, info = kind.inputs(cfg, seed, dev)
     info["start_s"] = started
-    pool = data.query_pool(seed, cfg["n"], cfg["dim"], traffic["pool"], dev)
+    pool = kind.query_pool(cfg, traffic, seed, dev)
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
     system = sysmod.System(cfg, inputs, traffic, dev)
-    _sync(dev)
+    data.sync(dev)
     info["build_s"] = time.perf_counter() - t
     del inputs
     t = time.perf_counter()
@@ -216,7 +199,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
     warm(system, pool, traffic)
     tracer = Tracer(trace, seconds)
     tracer.warm()
-    _sync(dev)
+    data.sync(dev)
     info["warm_s"] = time.perf_counter() - t
     if fault is not None:
         fault(system)
@@ -238,17 +221,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
 
     # the reference works the inputs out again from the seed
     t = time.perf_counter()
-    inputs, _ = make_inputs(cfg, seed, dev)
-    ref = reference(cfg, inputs)
-    numbers = check_numbers(ref, traffic, pool, win, dev)
+    inputs, _ = kind.inputs(cfg, seed, dev)
+    ref = kind.reference(cfg, inputs)
+    numbers = kind.numbers(ref, cfg, traffic, pool, win, dev)
     info["reference_s"] = time.perf_counter() - t
-    if win.sample_rows is not None:
-        q = torch.as_tensor(pool[win.sample_rows], device=dev)
-        ids = torch.as_tensor(win.sample_ids, device=dev).long()
-        info.update(compare.exact_recall(inputs["base"], q, ids))
-        if after is not None:
-            info["after"] = after(ref, q, ids, torch.as_tensor(
-                win.sample_dists, device=dev))
+    info.update(kind.informative(ref, inputs, pool, win, dev))
+    if after is not None and win.sample_rows is not None:
+        info["after"] = after(ref, pool, win, dev)
     del inputs
     checks = {k: {"value": numbers[k], "limit": lim}
               for k, lim in limits.items()}

@@ -1,6 +1,7 @@
 """BENCHMARK.json's format: keys, names, units, bounds, and a file for
 every name it gives."""
 
+import ast
 import json
 import os
 import re
@@ -118,6 +119,21 @@ def test_config_entry(c):
     assert len(c["reduced"]) <= 16
     assert c["reduced"] == cfg["reduced"]
     assert any(w["config"] == c["name"] for w in BENCH["workloads"])
+
+
+KIND_FUNCTIONS = {"inputs", "query_pool", "reference", "numbers",
+                  "informative"}
+
+
+@pytest.mark.parametrize("c", BENCH["configs"], ids=lambda c: c["name"])
+def test_config_kind_has_a_file_with_the_five_functions(c):
+    kind = json.load(open(os.path.join(ROOT, c["file"]))).get("kind", "adc")
+    assert NAME.match(kind), kind
+    path = os.path.join(HERE, "kinds", kind + ".py")
+    assert os.path.exists(path), path
+    tree = ast.parse(open(path).read())
+    defined = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert KIND_FUNCTIONS <= defined, KIND_FUNCTIONS - defined
 
 
 def test_files_are_named_from_names():

@@ -156,6 +156,7 @@ def test_benchmark_loads_no_jax_in_a_fresh_process():
             "import benchmark.calibrate\n"
             "r = h.Registry()\n"
             "[r.system(n) for n in ('flat', 'ivf')]\n"
+            "r.kind('adc')\n"
             "[r.reader(m['name']) for m in r.bench['end_to_end'] "
             "+ r.bench['per_layer']]\n"
             "print(h.forbidden_modules())\n" % ROOT)
