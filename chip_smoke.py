@@ -77,10 +77,11 @@
    must move (each input read once, each output written once) over 3.35
    TB/s and its int8 operations (2 per multiply-add; IVF: the n_live live
    page slots only) over 1,979 TOP/s, the H100 SXM data sheet's rates;
-   and its time's share of that bound. One JSON line describing the three
+   and its time's share of that bound. One JSON line describing the
    kernels (launches summed over the paths that run each, max_abs_err the
    worst of its comparisons, ms / bound at the flat path's shape for the
-   ADC kernels and at the nprobe-16 batch for `ivf_page`, every path under
+   ADC kernels, at the nprobe-16 batch for `ivf_page` and at the
+   vocabulary cell's batch for `vocab_score`, every path under
    by_path, `ivf_page` at each nprobe under by_nprobe with its live slot
    count; no one PyTorch call computes packed segment minima, so
    library_ms is null) and, last, the device line.
@@ -107,8 +108,20 @@
    index saved and loaded on the CPU answers 8 queries as the card (rank
    by rank within rtol 1e-5, a rank whose score lies within 1e-5 of a
    neighbour's may swap: float32 sums in another order; with
-   verification the top-1, the rest counted). The path launches none of
-   the three kernels: their counts, zeroed before it, stay 0.
+   verification the top-1, the rest counted). The path launches
+   `vocab_score_kernel` (the inverted-file score) and no other kernel of
+   the port: the counts are zeroed before it. Then the same kernel at the
+   sizes of the benchmark cell `oxford5k-vt1m-he64.q64`: the cell's
+   collection (5,062 images, ~16.3M uint8 descriptors), its 1,048,576-word
+   tree and its HE projection and thresholds, made from the seed by
+   benchmark/kinds/vocab.py, indexed as benchmark/systems/vocab.py
+   indexes them (add_images, prepare); one batch of 64 query images sent
+   as the cell sends it (ragged query_batch, k 100), the kernel's
+   arguments recorded from that call, and the kernel held against its
+   twin on them (`ops.kernels.twin_check`: every score within 2^-23 of
+   its size), both timed (CUDA events, the twin on the card's tensors),
+   beside its bound in bytes (the batch's distinct posting entries at 12
+   B, 12 B a query feature, the float32 scores written once).
 13. `python -m cvt_tpu_torch.cli vocab_tree_retriever` as a subprocess on
    a FeatureDatabase (io/database.py) holding 8 indexed images and 8
    query images, with --vocab_index at the phase's saved index: its
@@ -136,8 +149,8 @@
    400,000 of the corpus's descriptors, iters 10) over the same images,
    query_batch for the 64 views at probes 2 / 8 / exact and probes 8 with
    verify 10 (gate: ids in range, finite scores). Times: extraction
-   images/s, add_image per image, per query image in each mode. The
-   three kernels' counts, zeroed before steps 14 and 15, stay 0.
+   images/s, add_image per image, per query image in each mode. Of the
+   kernels only `vocab_score_kernel` launches in steps 14 and 15.
 16. `python -m cvt_tpu_torch.cli feature_extractor` on 16 uint8 images
    (with --database) and on 4 views, then `cli retrieve`, as
    subprocesses: the ranked names must equal the in-process extract_sift
@@ -359,6 +372,8 @@ DEV = "cuda"
 KERNEL_SRC = "cvt_tpu_torch/csrc/adc_scan.cu"
 IVF_SRC = "cvt_tpu_torch/csrc/ivf_scan.cu"
 RESCORE_SRC = "cvt_tpu_torch/csrc/ivf_rescore.cu"
+VOCAB_SRC = "cvt_tpu_torch/csrc/vocab_score.cu"
+VOCAB_CELL = "oxford5k-vt1m-he64.q64"      # benchmark cell, step 12's sizes
 # IVF-ADC at the reference operating point (_bench_ivf.py:63-64's training)
 IVF_KC, IVF_M, IVF_SAMPLE, IVF_ITERS, IVF_B = 8192, 16, 262_144, 10, 256
 IVF_NPROBES, IVF_REF_NPROBE = (8, 16, 64), 16
@@ -1312,6 +1327,15 @@ def vocab_data():
     return desc, frames, q, qf.astype(np.float32), src, train
 
 
+def only_vocab_launches(launches: dict) -> None:
+    """A phase that queries the vocabulary index on the card launches
+    `vocab_score_kernel` (its inverted-file score) and no other
+    hand-written kernel."""
+    assert launches.get("vocab_score", 0) > 0, launches
+    assert not any(v for k, v in launches.items() if k != "vocab_score"), \
+        launches
+
+
 def rankings_agree(ids_a, sc_a, ids_b, sc_b, k: int,
                    atol: float = 1e-7) -> int:
     """The first k ranks of two [Q, >k] rankings agree: scores within
@@ -1387,7 +1411,7 @@ def phase_vocab(stamp: str) -> dict:
     res["launches"] = launch_counts()
     for label in ("probes 8", f"probes 8 + verify {VOCAB_VERIFY}"):
         assert runs[label]["recall_at_1"] >= 0.90, (label, runs[label])
-    assert not any(res["launches"].values()), res["launches"]
+    only_vocab_launches(res["launches"])
 
     # single queries against the batch (probes 8, no verification)
     idx.probes = 8
@@ -1519,6 +1543,66 @@ def run_vocab(stamp: str) -> dict:
           f"clock; vocabulary phase {vb['phase_s']:.1f} s {stamp}")
     vb["cli"] = cli
     return vb
+
+
+def vocab_bound(args) -> dict:
+    """`vocab_score`'s least bytes on one call's arguments: each distinct
+    posting entry its query words touch read once at 12 B (signature and
+    image; burstiness follows from the lists), 12 B a query feature (word
+    and signature), the [Q, n_images] float32 scores written once."""
+    f_word, offsets, n_queries, n_images = args[0], args[3], args[9], args[10]
+    words = torch.unique(f_word[f_word >= 0].long())
+    entries = int((offsets[words + 1] - offsets[words]).sum())
+    nb = (12 * entries + 12 * int((f_word >= 0).sum())
+          + 4 * n_queries * n_images)
+    return {"bound_ms": nb / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nb, "entries": entries}
+
+
+def run_vocab_cell(stamp: str) -> dict:
+    """Step 12's last part: `vocab_score_kernel` at the vocabulary cell's
+    sizes, on the arguments one of the cell's batches hands the wrapper:
+    against its twin, timed beside the twin and its bound."""
+    from benchmark import harness
+    from cvt_tpu_torch.ops.kernels import twin_check
+    from cvt_tpu_torch.ops.kernels import vocab_score as V
+    t0 = time.perf_counter()
+    reg = harness.Registry(os.path.dirname(os.path.abspath(__file__)))
+    cell = reg.cell(VOCAB_CELL)
+    cfg, traffic = reg.config(cell["config"]), reg.traffic(cell["traffic"])
+    kind = reg.kind(harness.kind_name(cfg))
+    dev = torch.device(DEV)
+    inputs, _ = kind.inputs(cfg, SEED, dev)
+    pool = kind.query_pool(cfg, traffic, SEED, dev)
+    system = reg.system(cfg["index"]).System(cfg, inputs, traffic, dev)
+    del inputs
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batch = pool[0:traffic["batch"]]
+    system.search(batch)                                        # warm
+    zero_launch_counts()
+    args = recorded_args("vocab_score", lambda: system.search(batch))
+    launches = launch_counts()["vocab_score"]
+    assert launches == 1, launches
+    cmp = twin_check("vocab_score", args)
+    r = share(cuda_ms(lambda: V.vocab_score(*args), 20), vocab_bound(args))
+    r.update(launches=launches, cmp=cmp,
+             plain_ms=cuda_ms(lambda: V.vocab_score_plain(*args), 3),
+             features=int((args[0] >= 0).sum()), images=args[10],
+             entries_total=int(args[3][-1]), build_s=build_s)
+    print(f"vocab_score at the cell {VOCAB_CELL} ({r['images']} images, "
+          f"{r['entries_total']} entries, {args[3].shape[0] - 1} words; "
+          f"index built in {build_s:.1f} s): one batch of {args[9]} query images, "
+          f"{r['features']} features, {r['entries']} distinct posting "
+          f"entries; against the twin max|diff| {cmp['max_abs_err']:.3g}, "
+          f"{cmp['scores_differ']} of {args[9] * args[10]} scores differ "
+          f"(within 2^-23 of their size); kernel {r['ms']:.3f} ms, twin "
+          f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms (bytes: "
+          f"{r['bytes'] / 1e6:.1f} MB), {r['bound_share']:.1%} of it {stamp}")
+    del system, pool, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
 
 
 def cuda_median_ms(fn, reps: int) -> tuple[float, list]:
@@ -1797,7 +1881,7 @@ def phase_retrieval(stamp: str) -> dict:
             "recall_at_5": float(np.mean((ids[:, :5] == src[:, None]).any(1))),
             "ms_per_image": dt / len(src) * 1e3}
     res["launches"] = launch_counts()
-    assert not any(res["launches"].values()), res["launches"]
+    only_vocab_launches(res["launches"])
     res["phase_s"] = time.perf_counter() - t_phase
     return res
 
@@ -1955,7 +2039,8 @@ def run_features(stamp: str) -> dict:
           f"{cl['recall_at_1']:.2f}), {cl['wall_s']:.1f} s process wall "
           f"clock {stamp}")
     print(f"steps 14-16 took {time.perf_counter() - t_all:.1f} s {stamp}")
-    return {"profile_input": ex.pop("_profile_input")}
+    return {"profile_input": ex.pop("_profile_input"),
+            "vocab_launches": rt["launches"]["vocab_score"]}
 
 
 def multiview_scene(seed: int):
@@ -2545,9 +2630,10 @@ def run_matching(stamp: str) -> dict:
           f"most {cl['cross_source_max_matches']} matches {stamp}")
     launches = launch_counts()
     print(f"launches during steps 17-18: {launches} {stamp}")
-    assert not any(launches.values()), launches
+    only_vocab_launches(launches)
     print(f"steps 17-18 took {time.perf_counter() - t_all:.1f} s {stamp}")
-    return {"images": mt.pop("_images"), "tables": mt.pop("_tables")}
+    return {"images": mt.pop("_images"), "tables": mt.pop("_tables"),
+            "vocab_launches": launches["vocab_score"]}
 
 
 class DeviceSpan:
@@ -4855,7 +4941,8 @@ def main() -> int:
 
     sq = run_sq(base_dev, q_dev, stamp)
     sv = run_serving(idx, q_dev, gt, ids_ref, base_dev, stamp)
-    run_vocab(stamp)
+    vb = run_vocab(stamp)
+    vc = run_vocab_cell(stamp)
     feat = run_features(stamp)
     match = run_matching(stamp)
     recon = run_reconstruction(stamp, match)
@@ -4990,14 +5077,26 @@ def main() -> int:
                           **{n: c["ids_differ"]
                              for n, c in rescore_cmp.items()}},
               launches_by_path={"ivf": iv["rescore_launches"]},
-              by_path={f"ivf_b{IVF_CELL_B}": path(rb)})]
+              by_path={f"ivf_b{IVF_CELL_B}": path(rb)}),
+        entry("vocab_score", VOCAB_SRC,
+              "none: cvt_tpu scores its bucket layout in jnp (_score_one in "
+              "cvt_tpu/index/vocab_he.py)",
+              vb["launches"]["vocab_score"] + vc["launches"]
+              + feat["vocab_launches"] + match["vocab_launches"],
+              vc["cmp"]["max_abs_err"], vc["ms"], vc["plain_ms"], vc,
+              scores_differ=vc["cmp"]["scores_differ"],
+              launches_by_path={"vocab": vb["launches"]["vocab_score"],
+                                "cell": vc["launches"],
+                                "retrieval": feat["vocab_launches"],
+                                "matching": match["vocab_launches"]},
+              by_path={"cell": path(vc)})]
 
     # step 27 last, with every tensor of steps 1-26 dropped, so that the
     # bench's process has the card to itself
     del (rand_dec, rand_cached, rand_norm, idx, q_dev, base_dev, gt,
          ids_ref, dec_args, cached_args, ivf_idx, ivf_by_p, ivf_args, res,
-         iv, rs, rescore_cmp, sq, sv, feat, match, recon, apps, arc, em,
-         prof, mp, bp, ap)
+         iv, rs, rescore_cmp, sq, sv, vb, vc, feat, match, recon, apps, arc,
+         em, prof, mp, bp, ap)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"before step 27 this process holds "

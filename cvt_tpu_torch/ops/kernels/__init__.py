@@ -4,18 +4,19 @@ wrappers and their plain PyTorch twins.
 Here: each wrapper's launch count, the arguments a call hands a wrapper
 (`recorded_args`), and a kernel held against its twin on them
 (`compare_kernel_to_twin`, `compare_ivf_kernel`,
-`compare_rescore_kernel`, `twin_check`)."""
+`compare_rescore_kernel`, `compare_vocab_kernel`, `twin_check`)."""
 
 import torch
 
 
 def wrappers() -> dict:
     """Each kernel's name and the wrapper that counts its launches."""
-    from cvt_tpu_torch.ops.kernels import adc_scan, ivf_scan
+    from cvt_tpu_torch.ops.kernels import adc_scan, ivf_scan, vocab_score
     return {"adc_segmin": adc_scan.adc_segmin,
             "adc_segmin_cached": adc_scan.adc_segmin_cached,
             "ivf_page": ivf_scan.ivf_pages_segmin,
-            "ivf_rescore": ivf_scan.ivf_rescore}
+            "ivf_rescore": ivf_scan.ivf_rescore,
+            "vocab_score": vocab_score.vocab_score}
 
 
 def launch_counts() -> dict:
@@ -153,10 +154,30 @@ def compare_rescore_kernel(args) -> dict:
             "shape": list(got_i.shape)}
 
 
+def compare_vocab_kernel(args) -> dict:
+    """The vocab_score kernel against its twin on the same arguments: the
+    same float32 terms summed in float64 in another order, so every score
+    within 2^-23 of its size (a float32 rounding apart, for a sum at a
+    rounding boundary); raise otherwise."""
+    from cvt_tpu_torch.ops.kernels import vocab_score as V
+    got = V.vocab_score(*args).cpu()
+    want = V.vocab_score_plain(*(a.cpu() if torch.is_tensor(a) else a
+                                 for a in args))
+    err = (got.double() - want.double()).abs()
+    bad = err > 2.0 ** -23 * want.double().abs()
+    if bool(bad.any()):
+        raise AssertionError(f"vocab_score kernel differs from its twin by "
+                             f"{float(err.max())}")
+    return {"max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "scores_differ": int((err > 0).sum()),
+            "shape": list(got.shape)}
+
+
 def twin_check(name: str, args: tuple) -> dict:
     """Kernel `name` against its twin on `args` (a call's own, as
     `recorded_args` gives them): `compare_ivf_kernel` for ivf_page,
-    `compare_rescore_kernel` for ivf_rescore, else
+    `compare_rescore_kernel` for ivf_rescore, `compare_vocab_kernel` for
+    vocab_score, else
     `compare_kernel_to_twin` with the row norms the kernel scores; raises
     on a difference. The comparison's launch is not one of the path's, so
     it leaves the wrapper's count as it was."""
@@ -168,6 +189,8 @@ def twin_check(name: str, args: tuple) -> dict:
             return compare_ivf_kernel(args)
         if name == "ivf_rescore":
             return compare_rescore_kernel(args)
+        if name == "vocab_score":
+            return compare_vocab_kernel(args)
         if name == "adc_segmin":
             norm = T._row_norms(T.decode_int8(args[2], args[3]), args[4])
             return compare_kernel_to_twin(w, T.adc_segmin_plain, args, norm,

@@ -44,6 +44,9 @@ _SIGNATURES = {
     # n_rows, d, kc, n_take, k, exact_probe, nt, n_chunks, chunk_rows,
     # cand, win, lo, key_g, id_g, out_d, out_i, stream
     "cvt_ivf_rescore": [_P] * 8 + [_F] + [_P] * 4 + [_I] * 14 + [_P] * 8,
+    # f_word, f_sig, f_query, cum, n_feat, offsets, e_img, e_sig, e_burst,
+    # idf, wtab, max_dist, n_images, blocks, out, stream
+    "cvt_vocab_score": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 3 + [_P, _P],
 }
 
 

@@ -302,13 +302,15 @@ def hierarchical_kmeans(gen: torch.Generator, x, k1: int = 256,
                             objective)
 
 
-def _hier_assign_chunk(xc: torch.Tensor, coarse: torch.Tensor,
-                       fine: torch.Tensor, probes: int):
-    """One chunk of hierarchical assignment with multi-probe: the
+def _hier_assign_gathered(xc: torch.Tensor, coarse: torch.Tensor,
+                          fine: torch.Tensor, probes: int):
+    """The per-point form of `_hier_assign_chunk`: each probe gathers
+    every point's own [K2, D] block (a [T, K2, D] copy a probe), the
     `probes` nearest coarse cells per point, an exact argmin inside each,
     the best (cell, sub) over the probes (strict improvement, so the
-    earlier probe wins a tie). Returns (word ids [T] int32 = cell*K2 +
-    sub, squared distance [T])."""
+    earlier probe wins a tie). Kept as the grouped form's plain
+    reference. Returns (word ids [T] int32 = cell*K2 + sub, squared
+    distance [T])."""
     k1, k2, d = fine.shape
     x_sq = torch.sum(xc * xc, -1, keepdim=True)                  # [T, 1]
     d1 = (x_sq - 2.0 * (xc @ coarse.T)
@@ -330,22 +332,118 @@ def _hier_assign_chunk(xc: torch.Tensor, coarse: torch.Tensor,
     return best_w, torch.clamp_min(best_d, 0.0)
 
 
+# rows of (point, probe) pairs scored against one cell's block per GEMM
+# tile, and the bound on one step's [tiles, rows, K2] float32 scores
+_TILE_ROWS = 512
+_STEP_BYTES = 1 << 29
+
+
+def _augmented_fine(fine: torch.Tensor) -> torch.Tensor:
+    """[K1, K2, D'] = [-2 fine | ||fine||^2 | 0 ...], D' = D + 4, so that
+    one product with [x | 1 | 0 ...] gives ||f||^2 - 2<x, f> (the 0
+    columns keep rows 16-byte aligned)."""
+    k1, k2, d = fine.shape
+    out = torch.zeros((k1, k2, d + 4), dtype=fine.dtype, device=fine.device)
+    out[..., :d] = -2.0 * fine
+    out[..., d] = torch.sum(fine * fine, -1)
+    return out
+
+
+def _cell_argmin(xc: torch.Tensor, cells: torch.Tensor, fa: torch.Tensor):
+    """For every (point, probe) pair, the first nearest word inside its
+    cell: (||f||^2 - 2<x, f> of it [T, P], its sub id [T, P] int64).
+
+    The pairs are sorted by cell and cut into tiles of at most
+    `_TILE_ROWS` rows of one cell; each step scores a run of tiles against
+    their cells' blocks as one batched GEMM, so a cell's block is read
+    once a tile, not once a point. One host sync (the cells' counts)."""
+    t, p = cells.shape
+    k1, k2, da = fa.shape
+    dev = xc.device
+    n = t * p
+    flat = cells.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=k1).cpu().numpy()
+    per = -(-counts // _TILE_ROWS)
+    tile_cell = np.repeat(np.arange(k1), per)
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    tile0 = np.concatenate([[0], np.cumsum(per)[:-1]])
+    row0 = first[tile_cell] + (np.arange(len(tile_cell))
+                               - tile0[tile_cell]) * _TILE_ROWS
+    end = first[tile_cell] + counts[tile_cell]
+    pos = (torch.from_numpy(row0).to(dev)[:, None]
+           + torch.arange(_TILE_ROWS, device=dev)[None, :])
+    valid = pos < torch.from_numpy(end).to(dev)[:, None]
+    pair = torch.where(valid, order[pos.clamp_max(max(n - 1, 0))], n)
+    # [x | 1 | 0 ...]; row t, all zeros, stands in for a tile's empty rows
+    xa = torch.zeros((t + 1, da), dtype=xc.dtype, device=dev)
+    xa[:t, :xc.shape[1]] = xc
+    xa[:t, xc.shape[1]] = 1.0
+    tcell = torch.from_numpy(tile_cell).to(dev)
+    dist = torch.empty(n + 1, dtype=xc.dtype, device=dev)
+    sub = torch.empty(n + 1, dtype=torch.int64, device=dev)
+    step = max(1, _STEP_BYTES // (_TILE_ROWS * k2 * 4))
+    for lo in range(0, len(tile_cell), step):
+        pr = pair[lo:lo + step]                                  # [G, R]
+        xt = xa[torch.div(pr, p, rounding_mode="floor").clamp_max(t)]
+        dd = torch.bmm(xt, fa[tcell[lo:lo + step]].mT)           # [G, R, K2]
+        v, a = torch.min(dd, -1)
+        dist[pr.reshape(-1)] = v.reshape(-1)
+        sub[pr.reshape(-1)] = a.reshape(-1)
+    return dist[:n].reshape(t, p), sub[:n].reshape(t, p)
+
+
+def _hier_assign_chunk(xc: torch.Tensor, coarse: torch.Tensor,
+                       fine: torch.Tensor, probes: int, fa=None):
+    """One chunk of hierarchical assignment with multi-probe: the
+    `probes` nearest coarse cells per point, an exact argmin inside each
+    (the first minimum), the best (cell, sub) over the probes (strict
+    improvement, so the earlier probe wins a tie). The argmins are taken
+    grouped by cell (`_cell_argmin`); `fa` is `_augmented_fine(fine)`,
+    made here when not given. Returns (word ids [T] int32 = cell*K2 + sub,
+    squared distance [T]).
+
+    The distances are those of `_hier_assign_gathered` up to float32
+    summation order: ||f||^2 enters the GEMM's sum as its last term, and
+    ||x||^2 is added to each cell's minimum."""
+    k1, k2, d = fine.shape
+    x_sq = torch.sum(xc * xc, -1, keepdim=True)                  # [T, 1]
+    d1 = (x_sq - 2.0 * (xc @ coarse.T)
+          + torch.sum(coarse * coarse, -1)[None, :])             # [T, K1]
+    _, cells = top_k_smallest(d1, probes)                        # [T, P]
+    dmin, sub = _cell_argmin(xc, cells, _augmented_fine(fine)
+                             if fa is None else fa)
+    dist = x_sq + dmin                                           # [T, P]
+    best_d = torch.full((xc.shape[0],), 3.4e38, dtype=torch.float32,
+                        device=xc.device)
+    best_w = torch.zeros((xc.shape[0],), dtype=torch.int32, device=xc.device)
+    for p in range(probes):
+        db = dist[:, p]
+        upd = db < best_d
+        best_d = torch.where(upd, db, best_d)
+        best_w = torch.where(upd, (cells[:, p] * k2 + sub[:, p]).to(
+            torch.int32), best_w)
+    return best_w, torch.clamp_min(best_d, 0.0)
+
+
 def hierarchical_assign(x, coarse, fine, *, probes: int = 4,
-                        chunk: int = 16384, device=None):
+                        chunk: int | None = None, device=None):
     """Assign [N, D] points to k1*k2 hierarchical words (multi-probe).
 
     probes=1 is the FLANN tree descent; probes >= 4 agrees with the exact
-    flat argmin over all k1*k2 words for >= 95% of points. Each probe is
-    one gathered [T, K2, D] product. `device` defaults to x's own for a
-    tensor, else the card."""
+    flat argmin over all k1*k2 words for >= 95% of points. The (point,
+    probe) pairs of a chunk of `chunk` points (by default about 2M pairs)
+    are grouped by cell, so each cell's [K2, D] block is read once a tile
+    of up to 512 pairs (`_cell_argmin`). `device` defaults to x's own for
+    a tensor, else the card."""
     dev = resolve_device(device, like=x)
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
     coarse = torch.as_tensor(coarse, dtype=torch.float32, device=dev)
     fine = torch.as_tensor(fine, dtype=torch.float32, device=dev)
-    # bound the per-probe gathered [chunk, K2, D] working set to ~1 GB
-    k1, k2, d = fine.shape
-    chunk = max(256, min(chunk, (1 << 28) // max(k2 * d, 1)))
-    parts = [_hier_assign_chunk(x[s:s + chunk], coarse, fine, probes)
+    if chunk is None:
+        chunk = max(256, (1 << 21) // max(probes, 1))
+    fa = _augmented_fine(fine)
+    parts = [_hier_assign_chunk(x[s:s + chunk], coarse, fine, probes, fa)
              for s in range(0, x.shape[0], chunk)]
     return (torch.cat([w for w, _ in parts]),
             torch.cat([d for _, d in parts]))
