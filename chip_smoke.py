@@ -10,7 +10,7 @@
    registers and spills (ptxas) and, where the toolkit has
    cuobjdump, the count of each scoring instruction class in its SASS
    (IMMA / IGMMA: int8 tensor cores; IDP4A: dp4a on the CUDA cores);
-   `ivf_page` must show IGMMA and no IDP4A.
+   `ivf_page` and `vocab_descend` must show IGMMA and no IDP4A.
 2. Kernel against twin on seeded random inputs: both ADC kernels and
    their plain PyTorch twins (Npad = 65,536, B = 1,024, D = 128, M = 8,
    K = 256), then the decode kernel at every smaller segment size
@@ -81,7 +81,8 @@
    kernels (launches summed over the paths that run each, max_abs_err the
    worst of its comparisons, ms / bound at the flat path's shape for the
    ADC kernels, at the nprobe-16 batch for `ivf_page` and at the
-   vocabulary cell's batch for `vocab_score`, every path under
+   vocabulary cell's batch for `vocab_score` and `vocab_descend`, every
+   path under
    by_path, `ivf_page` at each nprobe under by_nprobe with its live slot
    count; no one PyTorch call computes packed segment minima, so
    library_ms is null) and, last, the device line.
@@ -121,7 +122,15 @@
    twin on them (`ops.kernels.twin_check`: every score within 2^-23 of
    its size), both timed (CUDA events, the twin on the card's tensors),
    beside its bound in bytes (the batch's distinct posting entries at 12
-   B, 12 B a query feature, the float32 scores written once).
+   B, 12 B a query feature, the float32 scores written once). The same
+   for the tree descent's `vocab_descend_kernel` (the cell's words are
+   integers and its rows uint8, so the batch's descent launches it once):
+   its arguments recorded from one such call, held against its twin
+   bitwise (max|diff| of the distances and the count of differing word
+   ids, both 0), the batch's whole descent against the float32 path on
+   the same rows (bitwise too), both timed, beside its bound (2 K2 D int8 operations a
+   pair; the touched cells' words, the rows and the pairs' 8 bytes in and
+   out, read or written once).
 13. `python -m cvt_tpu_torch.cli vocab_tree_retriever` as a subprocess on
    a FeatureDatabase (io/database.py) holding 8 indexed images and 8
    query images, with --vocab_index at the phase's saved index: its
@@ -362,7 +371,7 @@ from cvt_tpu_torch.ops.kernels import (compare_ivf_kernel,
                                        compare_kernel_to_twin,
                                        compare_rescore_kernel, launch_counts,
                                        recorded_args, zero_launch_counts)
-from cvt_tpu_torch.utils.profile import (HBM_BYTES_PER_S, adc_bound,
+from cvt_tpu_torch.utils.profile import (HBM_BYTES_PER_S, adc_bound, bound,
                                          card_line, ivf_bound, live_slots)
 
 SEED = 0
@@ -373,6 +382,7 @@ KERNEL_SRC = "cvt_tpu_torch/csrc/adc_scan.cu"
 IVF_SRC = "cvt_tpu_torch/csrc/ivf_scan.cu"
 RESCORE_SRC = "cvt_tpu_torch/csrc/ivf_rescore.cu"
 VOCAB_SRC = "cvt_tpu_torch/csrc/vocab_score.cu"
+DESCEND_SRC = "cvt_tpu_torch/csrc/vocab_descend.cu"
 VOCAB_CELL = "oxford5k-vt1m-he64.q64"      # benchmark cell, step 12's sizes
 # IVF-ADC at the reference operating point (_bench_ivf.py:63-64's training)
 IVF_KC, IVF_M, IVF_SAMPLE, IVF_ITERS, IVF_B = 8192, 16, 262_144, 10, 256
@@ -1559,6 +1569,63 @@ def vocab_bound(args) -> dict:
             "bytes": nb, "entries": entries}
 
 
+def descend_bound(args) -> dict:
+    """`vocab_descend`'s least time on one call's arguments: 2 K2 D int8
+    operations a pair, or the bytes read or written once (the touched
+    cells' words and norms, the rows, the pairs' order and tiles, 8 B a
+    pair out), whichever is larger."""
+    rows, order, tiles, words, fsq, _ = args
+    _, k2, d = words.shape
+    n = order.shape[0]
+    cells = int(torch.unique(tiles[:, 0]).numel())
+    nb = cells * k2 * (d + 4) + rows.numel() + 16 * n + 12 * tiles.shape[0]
+    return dict(bound(2.0 * n * k2 * d, nb), pairs=n, cells=cells,
+                tiles=int(tiles.shape[0]))
+
+
+def run_descend_cell(system, batch, stamp: str) -> dict:
+    """`vocab_descend_kernel` on the arguments the cell's batch hands the
+    wrapper: against its twin (bitwise), timed beside the twin and its
+    bound; and the batch's whole descent (`hierarchical_assign` on its
+    uint8 rows) against the float32 path on the same rows as float:
+    word ids and distances bitwise."""
+    import importlib
+    from cvt_tpu_torch.ops.kernels import twin_check
+    from cvt_tpu_torch.ops.kernels import vocab_descend as VD
+    kmeans = importlib.import_module("cvt_tpu_torch.ops.kmeans")
+    zero_launch_counts()
+    args = recorded_args("vocab_descend", lambda: system.search(batch))
+    launches = launch_counts()["vocab_descend"]
+    assert launches == 1, launches
+    cmp = twin_check("vocab_descend", args)
+    idx = system.index
+    rows = args[0]
+    got, want = (kmeans.hierarchical_assign(rows.float(), idx.coarse,
+                                            idx.fine, probes=idx.probes,
+                                            tree=tree, rows=rows)
+                 for tree in (idx._tree, None))
+    cmp.update(float_ids_differ=int((got[0] != want[0]).sum()),
+               float_max_abs_err=float((got[1] - want[1]).abs().max()))
+    assert cmp["float_ids_differ"] == 0 and cmp["float_max_abs_err"] == 0, \
+        cmp
+    r = share(cuda_ms(lambda: VD.vocab_descend(*args), 20),
+              descend_bound(args))
+    r.update(launches=launches, cmp=cmp,
+             plain_ms=cuda_ms(lambda: VD.vocab_descend_plain(*args), 3))
+    print(f"vocab_descend at the cell {VOCAB_CELL}: one batch's descent, "
+          f"{r['pairs']} (point, probe) pairs in {r['tiles']} tiles over "
+          f"{r['cells']} cells of {args[3].shape[1]} words; against the "
+          f"twin max|diff| of the distances {cmp['max_abs_err']}, "
+          f"{cmp['ids_differ']} word ids differ; the batch's descent "
+          f"against the float32 path: max|diff| {cmp['float_max_abs_err']}, "
+          f"{cmp['float_ids_differ']} ids differ; kernel {r['ms']:.3f} ms, "
+          f"twin {r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}: {r['ops']:.3e} int8 ops, "
+          f"{r['bytes'] / 1e6:.1f} MB), {r['bound_share']:.1%} of it "
+          f"{stamp}")
+    return r
+
+
 def run_vocab_cell(stamp: str) -> dict:
     """Step 12's last part: `vocab_score_kernel` at the vocabulary cell's
     sizes, on the arguments one of the cell's batches hands the wrapper:
@@ -1590,6 +1657,7 @@ def run_vocab_cell(stamp: str) -> dict:
              plain_ms=cuda_ms(lambda: V.vocab_score_plain(*args), 3),
              features=int((args[0] >= 0).sum()), images=args[10],
              entries_total=int(args[3][-1]), build_s=build_s)
+    r["descend"] = run_descend_cell(system, batch, stamp)
     print(f"vocab_score at the cell {VOCAB_CELL} ({r['images']} images, "
           f"{r['entries_total']} entries, {args[3].shape[0] - 1} words; "
           f"index built in {build_s:.1f} s): one batch of {args[9]} query images, "
@@ -4803,10 +4871,11 @@ def main() -> int:
             print(f"  ptxas {name}: {line}")
     sass = sass_classes(stale)
     for name, counts in sass.items():
-        if "adc_segmin" in name or "ivf_page" in name:
+        if any(k in name for k in ("adc_segmin", "ivf_page",
+                                   "vocab_descend")):
             print(f"  SASS {name}: " + ", ".join(
                 f"{c} {n}" for c, n in counts.items()))
-        if "ivf_page" in name:
+        if "ivf_page" in name or "vocab_descend" in name:
             assert counts["IGMMA"] > 0 and counts["IDP4A"] == 0, name
     if not sass:
         print("  SASS: cuobjdump not found; instruction classes not read")
@@ -5089,7 +5158,15 @@ def main() -> int:
                                 "cell": vc["launches"],
                                 "retrieval": feat["vocab_launches"],
                                 "matching": match["vocab_launches"]},
-              by_path={"cell": path(vc)})]
+              by_path={"cell": path(vc)}),
+        entry("vocab_descend", DESCEND_SRC,
+              "none: cvt_tpu descends the tree in jnp (_hier_assign_chunk "
+              "in cvt_tpu/ops/kmeans.py)",
+              vc["descend"]["launches"], vc["descend"]["cmp"]["max_abs_err"],
+              vc["descend"]["ms"], vc["descend"]["plain_ms"], vc["descend"],
+              ids_differ=vc["descend"]["cmp"]["ids_differ"],
+              launches_by_path={"cell": vc["descend"]["launches"]},
+              by_path={"cell": path(vc["descend"])})]
 
     # step 27 last, with every tensor of steps 1-26 dropped, so that the
     # bench's process has the card to itself

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) int8 tensor-core building blocks shared by the packed
-// segment-min scans of adc_scan.cu and ivf_scan.cu.
+// segment-min scans of adc_scan.cu and ivf_scan.cu (and, for its layout
+// and its uint8 product, the tree descent of vocab_descend.cu).
 //
 // A block is one warpgroup (128 threads) that owns 128 database rows for
 // the whole query batch. The rows sit K-major in shared memory in the
@@ -66,40 +67,46 @@ __device__ __forceinline__ uint64_t make_desc(const void* p) {
   return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
-// d (+)= a (64 x 32, K-major) * b (128 x 32, K-major)^T, signed int8 in,
-// int32 out; accumulate = 0 overwrites d
-__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
+// d (+)= a (64 x 32, K-major) * b (128 x 32, K-major)^T, int8 in (signed
+// for wgmma_s8, unsigned for wgmma_u8), int32 out; accumulate = 0
+// overwrites d
+#define HOPPER_INT8_WGMMA(NAME, TYPES)                                      \
+  __device__ __forceinline__ void NAME(int (&d)[64], uint64_t da,          \
+                                       uint64_t db, int accumulate) {      \
+    asm volatile(                                                           \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                       \
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32." TYPES " {"          \
+        "%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+        "%8, %9, %10, %11, %12, %13, %14, %15, "                           \
+        "%16, %17, %18, %19, %20, %21, %22, %23, "                         \
+        "%24, %25, %26, %27, %28, %29, %30, %31, "                         \
+        "%32, %33, %34, %35, %36, %37, %38, %39, "                         \
+        "%40, %41, %42, %43, %44, %45, %46, %47, "                         \
+        "%48, %49, %50, %51, %52, %53, %54, %55, "                         \
+        "%56, %57, %58, %59, %60, %61, %62, %63 "                          \
+        "}, %64, %65, p;\n}\n"                                             \
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),                  \
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),                  \
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),                \
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),              \
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),              \
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),              \
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),              \
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),              \
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),              \
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),              \
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),              \
+          "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),              \
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),              \
+          "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),              \
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),              \
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])               \
+        : "l"(da), "l"(db), "r"(accumulate));                              \
+  }
+
+HOPPER_INT8_WGMMA(wgmma_s8, "s8.s8")
+HOPPER_INT8_WGMMA(wgmma_u8, "u8.u8")
+#undef HOPPER_INT8_WGMMA
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

@@ -47,8 +47,9 @@ import torch
 
 from cvt_tpu_torch.match.vote_verify import vote_and_verify
 from cvt_tpu_torch.ops.kmeans import (hierarchical_assign,
-                                      hierarchical_kmeans, kmeans,
-                                      kmeans_assign, kmeans_assign_blocked)
+                                      hierarchical_kmeans, integer_tree,
+                                      kmeans, kmeans_assign,
+                                      kmeans_assign_blocked)
 from cvt_tpu_torch.ops.bits import (_hamming, _pack_bits, _popcount,  # noqa: F401
                                     sigs_from_u32, sigs_to_u32)
 from cvt_tpu_torch.ops.kernels.vocab_score import vocab_score
@@ -222,7 +223,7 @@ class VocabHEIndex:
         self.device = resolve_device(device)
         self.words: torch.Tensor | None = None       # [W, D]
         self.coarse: torch.Tensor | None = None      # [K1, D] (hierarchical)
-        self.fine: torch.Tensor | None = None        # [K1, K2, D]
+        self.fine: torch.Tensor | None = None        # [K1, K2, D]; sets _tree
         self.he_proj: torch.Tensor | None = None     # [D, 64]
         self.he_thresh: torch.Tensor | None = None   # [W, 64]
         self._entries: list = []        # staged (img, words, sigs, geom)
@@ -240,6 +241,23 @@ class VocabHEIndex:
     @property
     def n_images(self) -> int:
         return len(self._names)
+
+    @property
+    def fine(self) -> torch.Tensor | None:
+        return self._fine
+
+    @fine.setter
+    def fine(self, value) -> None:
+        """The fine words; on the card also their `integer_tree`, made
+        once per tree here (so a plain assignment is seen too; replace
+        `fine` rather than change it in place), which sends uint8 rows to
+        the descent kernel. None for a float tree, and on the CPU, where
+        the float path gives the same bits."""
+        self._fine = value
+        self._tree = None
+        if value is not None and self.device.type == "cuda":
+            self._tree = integer_tree(torch.as_tensor(
+                value, dtype=torch.float32, device=self.device))
 
     def _as(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -299,22 +317,26 @@ class VocabHEIndex:
         self.he_thresh = torch.from_numpy(thr).to(self.device)
 
     # ------------------------------------------------------------------ add
-    def _stage(self, descriptors) -> torch.Tensor:
-        """Descriptors (numpy or a tensor) -> float32 on the index's
-        device. uint8 crosses to the card as it is (a quarter of float32's
-        bytes) and is converted there."""
+    def _stage(self, descriptors):
+        """Descriptors (numpy or a tensor) -> (x float32, rows) on the
+        index's device. uint8 crosses to the card as it is (a quarter of
+        float32's bytes), is converted there once, and is kept as `rows`
+        for the tree descent's kernel; rows is None for anything else."""
         t = torch.as_tensor(descriptors)
         if t.dtype == torch.uint8:
-            return t.to(self.device).to(torch.float32)
-        return t.to(self.device, torch.float32)
+            rows = t.to(self.device)
+            return rows.to(torch.float32), rows
+        return t.to(self.device, torch.float32), None
 
-    def _assign(self, x: torch.Tensor) -> torch.Tensor:
-        """Word ids [K] int32 of descriptors x [K, D] float32."""
+    def _assign(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        """Word ids [K] int32 of descriptors x [K, D] float32 (rows: the
+        same as uint8, or None)."""
         if self.hierarchical and self.probes == 0:
             words, _ = kmeans_assign_blocked(x, self.words)
         elif self.hierarchical:
             words, _ = hierarchical_assign(x, self.coarse, self.fine,
-                                           probes=self.probes)
+                                           probes=self.probes,
+                                           tree=self._tree, rows=rows)
         else:
             words, _ = kmeans_assign(x, self.words)
         return words
@@ -326,8 +348,8 @@ class VocabHEIndex:
 
     def _encode(self, descriptors):
         """[K, D] -> (words [K] int32, signatures [K] int64)."""
-        x = self._as(descriptors)
-        words = self._assign(x)
+        x, rows = self._stage(descriptors)
+        words = self._assign(x, rows)
         return words, self._sign(x, words)
 
     def add_image(self, descriptors, name: str | None = None,
@@ -367,8 +389,8 @@ class VocabHEIndex:
         words = np.empty(total, np.int32)
         sigs = np.empty(total, np.int64)
         for lo in range(0, total, _ADD_ROWS):
-            x = self._stage(descriptors[lo:lo + _ADD_ROWS])
-            w = self._assign(x)
+            x, rows = self._stage(descriptors[lo:lo + _ADD_ROWS])
+            w = self._assign(x, rows)
             words[lo:lo + len(x)] = w.cpu().numpy()
             sigs[lo:lo + len(x)] = self._sign(x, w).cpu().numpy()
         geom = np.zeros((total, 4), np.float32)
@@ -621,8 +643,9 @@ class VocabHEIndex:
           * padded: descriptors [Q, Kq, D], valid [Q, Kq] (default all);
           * ragged: descriptors [sum(counts), D], the Q images' rows one
             after another, and counts [Q]. uint8 rows cross to the card
-            as they are and are converted there; only real rows are
-            encoded.
+            as they are, are converted there and also go as they are to
+            the tree descent (its kernel, on an integer tree); only real
+            rows are encoded.
         One descriptor -> word assignment pass covers every query image
         and one pass of the inverted file (`vocab_score`) scores the whole
         batch. verify > 0 (padded form only) re-ranks each query's
@@ -635,7 +658,7 @@ class VocabHEIndex:
             self.prepare()
         with span("vocab.search"):
             with span("vocab.stage_in"):
-                x = self._stage(descriptors)
+                x, rows = self._stage(descriptors)
                 if counts is not None:
                     cnt = torch.as_tensor(counts).to(self.device)
                     q = cnt.shape[0]
@@ -645,6 +668,7 @@ class VocabHEIndex:
                 else:
                     q, kq, d = x.shape
                     x = x.reshape(q * kq, d)
+                    rows = None if rows is None else rows.reshape(q * kq, d)
                     f_query = torch.arange(
                         q, device=self.device).repeat_interleave(kq)
                     valid = (torch.ones((q, kq), dtype=torch.bool,
@@ -652,7 +676,7 @@ class VocabHEIndex:
                              else torch.as_tensor(valid,
                                                   device=self.device).bool())
             with span("vocab.assign"):
-                words = self._assign(x)
+                words = self._assign(x, rows)
             with span("vocab.sign"):
                 sigs = self._sign(x, words)
             f_word = (words if counts is not None

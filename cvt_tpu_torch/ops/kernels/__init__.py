@@ -4,19 +4,22 @@ wrappers and their plain PyTorch twins.
 Here: each wrapper's launch count, the arguments a call hands a wrapper
 (`recorded_args`), and a kernel held against its twin on them
 (`compare_kernel_to_twin`, `compare_ivf_kernel`,
-`compare_rescore_kernel`, `compare_vocab_kernel`, `twin_check`)."""
+`compare_rescore_kernel`, `compare_vocab_kernel`,
+`compare_descend_kernel`, `twin_check`)."""
 
 import torch
 
 
 def wrappers() -> dict:
     """Each kernel's name and the wrapper that counts its launches."""
-    from cvt_tpu_torch.ops.kernels import adc_scan, ivf_scan, vocab_score
+    from cvt_tpu_torch.ops.kernels import (adc_scan, ivf_scan,
+                                           vocab_descend, vocab_score)
     return {"adc_segmin": adc_scan.adc_segmin,
             "adc_segmin_cached": adc_scan.adc_segmin_cached,
             "ivf_page": ivf_scan.ivf_pages_segmin,
             "ivf_rescore": ivf_scan.ivf_rescore,
-            "vocab_score": vocab_score.vocab_score}
+            "vocab_score": vocab_score.vocab_score,
+            "vocab_descend": vocab_descend.vocab_descend}
 
 
 def launch_counts() -> dict:
@@ -173,11 +176,33 @@ def compare_vocab_kernel(args) -> dict:
             "shape": list(got.shape)}
 
 
+def compare_descend_kernel(args) -> dict:
+    """The vocab_descend kernel against its twin on the same arguments,
+    the twin run where they lie (it sums integers in float64, exactly):
+    distances and word ids bitwise, or raise. The wrapper's pair count
+    stays as it was, as `twin_check` keeps its launch count."""
+    from cvt_tpu_torch.ops.kernels import vocab_descend as V
+    pairs = V.vocab_descend.pairs
+    try:
+        got_d, got_s = V.vocab_descend(*args)
+    finally:
+        V.vocab_descend.pairs = pairs
+    want_d, want_s = V.vocab_descend_plain(*args)
+    err = int((got_d.long() - want_d.long()).abs().max()) \
+        if got_d.numel() else 0
+    ids_differ = int((got_s != want_s).sum())
+    if err or ids_differ:
+        raise AssertionError(f"vocab_descend kernel differs from its twin: "
+                             f"max|diff| {err}, {ids_differ} ids")
+    return {"max_abs_err": err, "ids_differ": ids_differ,
+            "pairs": int(got_d.numel()), "tiles": int(args[2].shape[0])}
+
+
 def twin_check(name: str, args: tuple) -> dict:
     """Kernel `name` against its twin on `args` (a call's own, as
     `recorded_args` gives them): `compare_ivf_kernel` for ivf_page,
     `compare_rescore_kernel` for ivf_rescore, `compare_vocab_kernel` for
-    vocab_score, else
+    vocab_score, `compare_descend_kernel` for vocab_descend, else
     `compare_kernel_to_twin` with the row norms the kernel scores; raises
     on a difference. The comparison's launch is not one of the path's, so
     it leaves the wrapper's count as it was."""
@@ -191,6 +216,8 @@ def twin_check(name: str, args: tuple) -> dict:
             return compare_rescore_kernel(args)
         if name == "vocab_score":
             return compare_vocab_kernel(args)
+        if name == "vocab_descend":
+            return compare_descend_kernel(args)
         if name == "adc_segmin":
             norm = T._row_norms(T.decode_int8(args[2], args[3]), args[4])
             return compare_kernel_to_twin(w, T.adc_segmin_plain, args, norm,

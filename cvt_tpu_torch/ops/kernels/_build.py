@@ -47,6 +47,9 @@ _SIGNATURES = {
     # f_word, f_sig, f_query, cum, n_feat, offsets, e_img, e_sig, e_burst,
     # idf, wtab, max_dist, n_images, blocks, out, stream
     "cvt_vocab_score": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 3 + [_P, _P],
+    # rows, d, probes, order, tiles, n_tiles, words, fsq, k2, out_d, out_s,
+    # stream
+    "cvt_vocab_descend": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P],
 }
 
 

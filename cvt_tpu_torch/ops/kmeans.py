@@ -18,7 +18,9 @@ by a running minimum over word blocks (`kmeans_assign_blocked`) and the
 two-level vocabulary (`hierarchical_kmeans`, `hierarchical_assign`), the
 replacement for FLANN's hierarchical k-means tree
 (visual_index.h:624-665). Python loops over chunks, blocks and probes
-stand in for `lax.map` / `lax.scan`.
+stand in for `lax.map` / `lax.scan`. Given uint8 points and a tree of
+integer words (`integer_tree`), the fine level is the hand-written
+`vocab_descend` kernel (ops/kernels/vocab_descend.py).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from cvt_tpu_torch.ops.kernels import vocab_descend as _descend
 from cvt_tpu_torch.ops.topk import top_k_largest, top_k_smallest
 from cvt_tpu_torch.utils.device import resolve_device
 
@@ -333,8 +336,9 @@ def _hier_assign_gathered(xc: torch.Tensor, coarse: torch.Tensor,
 
 
 # rows of (point, probe) pairs scored against one cell's block per GEMM
-# tile, and the bound on one step's [tiles, rows, K2] float32 scores
-_TILE_ROWS = 512
+# tile (the descent kernel's tile), and the bound on one step's [tiles,
+# rows, K2] float32 scores
+_TILE_ROWS = _descend.TILE
 _STEP_BYTES = 1 << 29
 
 
@@ -349,18 +353,34 @@ def _augmented_fine(fine: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _cell_argmin(xc: torch.Tensor, cells: torch.Tensor, fa: torch.Tensor):
-    """For every (point, probe) pair, the first nearest word inside its
-    cell: (||f||^2 - 2<x, f> of it [T, P], its sub id [T, P] int64).
+class IntegerTree(NamedTuple):
+    """The fine words of a tree whose words are all integers in 0-255, as
+    the descent kernel takes them (`integer_tree`)."""
+    words: torch.Tensor  # [K1, K2, D] uint8
+    fsq: torch.Tensor    # [K1, K2] int32: ||f||^2
 
-    The pairs are sorted by cell and cut into tiles of at most
-    `_TILE_ROWS` rows of one cell; each step scores a run of tiles against
-    their cells' blocks as one batched GEMM, so a cell's block is read
-    once a tile, not once a point. One host sync (the cells' counts)."""
-    t, p = cells.shape
-    k1, k2, da = fa.shape
-    dev = xc.device
-    n = t * p
+
+def integer_tree(fine: torch.Tensor) -> IntegerTree | None:
+    """`fine` [K1, K2, D] float32 as uint8 words and int32 squared norms
+    where every word is an integer in 0-255 and the descent kernel takes
+    the shape, else None. A word equals its uint8 cast only if it is such
+    an integer, so one compare over the cast checks the whole tree."""
+    k1, k2, d = fine.shape
+    if not _descend.shape_ok(d, k2):
+        return None
+    words = fine.to(torch.uint8)
+    if not bool((words == fine).all()):
+        return None
+    return IntegerTree(words.contiguous(),
+                       torch.sum(fine * fine, -1).to(torch.int32))
+
+
+def _pair_tiles(cells: torch.Tensor, k1: int):
+    """The (point, probe) pairs p = point * P + probe sorted by cell
+    (`order` [T * P] int64, on the cells' device) and cut into tiles of at
+    most `_TILE_ROWS` pairs of one cell: each tile's cell, first position
+    in `order` and pair count (numpy int64 [G]). One host sync (the
+    cells' counts)."""
     flat = cells.reshape(-1)
     order = torch.argsort(flat, stable=True)
     counts = torch.bincount(flat, minlength=k1).cpu().numpy()
@@ -370,10 +390,27 @@ def _cell_argmin(xc: torch.Tensor, cells: torch.Tensor, fa: torch.Tensor):
     tile0 = np.concatenate([[0], np.cumsum(per)[:-1]])
     row0 = first[tile_cell] + (np.arange(len(tile_cell))
                                - tile0[tile_cell]) * _TILE_ROWS
-    end = first[tile_cell] + counts[tile_cell]
-    pos = (torch.from_numpy(row0).to(dev)[:, None]
-           + torch.arange(_TILE_ROWS, device=dev)[None, :])
-    valid = pos < torch.from_numpy(end).to(dev)[:, None]
+    count = np.minimum(first[tile_cell] + counts[tile_cell] - row0,
+                       _TILE_ROWS)
+    return order, tile_cell, row0, count
+
+
+def _cell_argmin(xc: torch.Tensor, cells: torch.Tensor, fa: torch.Tensor):
+    """For every (point, probe) pair, the first nearest word inside its
+    cell: (||f||^2 - 2<x, f> of it [T, P], its sub id [T, P] int64).
+
+    The pairs are sorted by cell and cut into tiles of at most
+    `_TILE_ROWS` rows of one cell (`_pair_tiles`); each step scores a run
+    of tiles against their cells' blocks as one batched GEMM, so a cell's
+    block is read once a tile, not once a point."""
+    t, p = cells.shape
+    k1, k2, da = fa.shape
+    dev = xc.device
+    n = t * p
+    order, tile_cell, row0, count = _pair_tiles(cells, k1)
+    lane = torch.arange(_TILE_ROWS, device=dev)[None, :]
+    pos = torch.from_numpy(row0).to(dev)[:, None] + lane
+    valid = lane < torch.from_numpy(count).to(dev)[:, None]
     pair = torch.where(valid, order[pos.clamp_max(max(n - 1, 0))], n)
     # [x | 1 | 0 ...]; row t, all zeros, stands in for a tile's empty rows
     xa = torch.zeros((t + 1, da), dtype=xc.dtype, device=dev)
@@ -393,15 +430,33 @@ def _cell_argmin(xc: torch.Tensor, cells: torch.Tensor, fa: torch.Tensor):
     return dist[:n].reshape(t, p), sub[:n].reshape(t, p)
 
 
+def _cell_argmin_u8(rows: torch.Tensor, cells: torch.Tensor,
+                    tree: IntegerTree):
+    """`_cell_argmin` for uint8 rows [T, D] on an integer tree, as one
+    `vocab_descend` call over the same tiles: (||f||^2 - 2<x, f> [T, P]
+    float32, sub id [T, P] int32), exact, so equal to `_cell_argmin`'s
+    bits (every product and partial sum there is an integer below 2^24)."""
+    t, p = cells.shape
+    order, tile_cell, row0, count = _pair_tiles(cells, tree.words.shape[0])
+    tiles = torch.from_numpy(np.stack([tile_cell, row0, count], 1).astype(
+        np.int32)).to(rows.device)
+    dist, sub = _descend.vocab_descend(rows.contiguous(), order, tiles,
+                                       tree.words, tree.fsq, p)
+    return dist.float().reshape(t, p), sub.reshape(t, p)
+
+
 def _hier_assign_chunk(xc: torch.Tensor, coarse: torch.Tensor,
-                       fine: torch.Tensor, probes: int, fa=None):
+                       fine: torch.Tensor, probes: int, fa=None, tree=None,
+                       rows=None):
     """One chunk of hierarchical assignment with multi-probe: the
     `probes` nearest coarse cells per point, an exact argmin inside each
     (the first minimum), the best (cell, sub) over the probes (strict
     improvement, so the earlier probe wins a tie). The argmins are taken
-    grouped by cell (`_cell_argmin`); `fa` is `_augmented_fine(fine)`,
-    made here when not given. Returns (word ids [T] int32 = cell*K2 + sub,
-    squared distance [T]).
+    grouped by cell: given `tree` (`integer_tree(fine)`) and `rows` (xc
+    as uint8) by the descent kernel (`_cell_argmin_u8`), else in
+    float32 (`_cell_argmin`; `fa` is `_augmented_fine(fine)`, made here
+    when not given). Returns (word ids [T] int32 = cell*K2 + sub, squared
+    distance [T]).
 
     The distances are those of `_hier_assign_gathered` up to float32
     summation order: ||f||^2 enters the GEMM's sum as its last term, and
@@ -411,8 +466,11 @@ def _hier_assign_chunk(xc: torch.Tensor, coarse: torch.Tensor,
     d1 = (x_sq - 2.0 * (xc @ coarse.T)
           + torch.sum(coarse * coarse, -1)[None, :])             # [T, K1]
     _, cells = top_k_smallest(d1, probes)                        # [T, P]
-    dmin, sub = _cell_argmin(xc, cells, _augmented_fine(fine)
-                             if fa is None else fa)
+    if tree is not None and rows is not None:
+        dmin, sub = _cell_argmin_u8(rows, cells, tree)
+    else:
+        dmin, sub = _cell_argmin(xc, cells, _augmented_fine(fine)
+                                 if fa is None else fa)
     dist = x_sq + dmin                                           # [T, P]
     best_d = torch.full((xc.shape[0],), 3.4e38, dtype=torch.float32,
                         device=xc.device)
@@ -427,14 +485,18 @@ def _hier_assign_chunk(xc: torch.Tensor, coarse: torch.Tensor,
 
 
 def hierarchical_assign(x, coarse, fine, *, probes: int = 4,
-                        chunk: int | None = None, device=None):
+                        chunk: int | None = None, device=None, tree=None,
+                        rows=None):
     """Assign [N, D] points to k1*k2 hierarchical words (multi-probe).
 
     probes=1 is the FLANN tree descent; probes >= 4 agrees with the exact
     flat argmin over all k1*k2 words for >= 95% of points. The (point,
     probe) pairs of a chunk of `chunk` points (by default about 2M pairs)
     are grouped by cell, so each cell's [K2, D] block is read once a tile
-    of up to 512 pairs (`_cell_argmin`). `device` defaults to x's own for
+    of up to 512 pairs: by the float32 GEMMs of `_cell_argmin`, or, given
+    both `tree` (`integer_tree(fine)`) and `rows` (the points as uint8
+    [N, D], on x's device), by the descent kernel `vocab_descend`. Both
+    give the same bits where both apply. `device` defaults to x's own for
     a tensor, else the card."""
     dev = resolve_device(device, like=x)
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -442,8 +504,16 @@ def hierarchical_assign(x, coarse, fine, *, probes: int = 4,
     fine = torch.as_tensor(fine, dtype=torch.float32, device=dev)
     if chunk is None:
         chunk = max(256, (1 << 21) // max(probes, 1))
-    fa = _augmented_fine(fine)
-    parts = [_hier_assign_chunk(x[s:s + chunk], coarse, fine, probes, fa)
-             for s in range(0, x.shape[0], chunk)]
+    if tree is None or rows is None:
+        tree = rows = None
+    elif rows.dtype != torch.uint8 or rows.shape != x.shape:
+        raise ValueError(f"hierarchical_assign: rows must be uint8 of x's "
+                         f"shape {tuple(x.shape)}, got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    fa = _augmented_fine(fine) if tree is None else None
+    parts = [_hier_assign_chunk(
+        x[s:s + chunk], coarse, fine, probes, fa, tree,
+        None if rows is None else rows[s:s + chunk])
+        for s in range(0, x.shape[0], chunk)]
     return (torch.cat([w for w, _ in parts]),
             torch.cat([d for _, d in parts]))

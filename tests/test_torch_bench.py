@@ -134,7 +134,7 @@ def _check_result(lanes, last):
     assert last["kernel_launches"] == {"adc_segmin": 0,
                                        "adc_segmin_cached": 0,
                                        "ivf_page": 0, "ivf_rescore": 0,
-                                       "vocab_score": 0}
+                                       "vocab_score": 0, "vocab_descend": 0}
     assert last["bound_by"] == "operations" and last["bound_share"] is None
     lo, hi = last["value_spread"]
     assert lo <= last["value"] <= hi

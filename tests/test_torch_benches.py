@@ -158,7 +158,7 @@ def test_suite_main_on_cpu(name, tmp_path, monkeypatch, capsys):
     assert r["device"] == "cpu"
     assert r["kernel_launches"] == {"adc_segmin": 0, "adc_segmin_cached": 0,
                                     "ivf_page": 0, "ivf_rescore": 0,
-                                    "vocab_score": 0}
+                                    "vocab_score": 0, "vocab_descend": 0}
     for x in _gate_keys(name, r):
         assert np.isfinite(x), (name, x)
 

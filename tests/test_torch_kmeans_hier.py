@@ -136,3 +136,145 @@ def test_hierarchical_kmeans_quality(rng):
                                     probes=4, device="cpu")
     assert float(d_h.mean()) <= float(flat.objective) * 1.25
     assert float(runs[0].objective) > 0
+
+
+# The fine level on uint8 rows and an integer tree: `vocab_descend` (its
+# twin on the CPU) against the float32 path it replaces there and against
+# cvt_tpu. Every product and sum is an exact integer below 2^24 on every
+# side, so bitwise.
+
+from cvt_tpu_torch.ops.kernels import vocab_descend as VD  # noqa: E402
+
+
+def _integer_tree(k1, k2, d, seed, hi=4):
+    """Integer coarse centroids, fine words integers in [0, hi) with
+    repeats (exact ties), uint8 rows; `hi` 256 spans the whole byte."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, hi, (3000, d), generator=g).to(torch.uint8)
+    coarse = torch.randint(0, hi, (k1, d), generator=g).float()
+    fine = torch.randint(0, hi, (k1, k2, d), generator=g).float()
+    fine[1, 100] = fine[1, 7]               # the same word twice in a cell
+    fine[2, 5:] = fine[2, 4]                # a cell of one repeated word
+    fine[3, 0] = 255.0                      # the byte's ends
+    fine[3, 1] = 0.0
+    coarse[2] = coarse[0]                   # two cells at one distance
+    return x, coarse, fine
+
+
+def _kernel_path(x, coarse, fine, probes, **kw):
+    """`hierarchical_assign` as the index calls it on the card: float32
+    points, their uint8 rows and the tree's `integer_tree`."""
+    return tk.hierarchical_assign(x.float(), coarse, fine, probes=probes,
+                                  device="cpu", tree=tk.integer_tree(fine),
+                                  rows=x, **kw)
+
+
+@pytest.mark.parametrize("probes,hi", [(1, 4), (3, 4), (4, 256)])
+def test_descend_kernel_path_equals_float_path(probes, hi):
+    """uint8 rows on an integer tree take the kernel path (the twin here):
+    ids and distances bitwise those of the float path on the same values
+    and of the gathered form, ties included; so are the grouped argmins."""
+    x, coarse, fine = _integer_tree(4, 128, 16, probes, hi)
+    pairs, launches = VD.vocab_descend.pairs, VD.vocab_descend.launches
+    w, d = _kernel_path(x, coarse, fine, probes, chunk=700)
+    assert VD.vocab_descend.pairs - pairs == 3000 * probes
+    assert VD.vocab_descend.launches == launches
+    wf, df = tk.hierarchical_assign(x.float(), coarse, fine, probes=probes,
+                                    chunk=700, device="cpu")
+    assert torch.equal(w, wf) and torch.equal(d, df)
+    gw, gd = tk._hier_assign_gathered(x.float(), coarse, fine, probes)
+    assert torch.equal(w, gw) and torch.equal(d, gd)
+    cells = torch.randint(0, 4, (3000, probes),
+                          generator=torch.Generator().manual_seed(1))
+    got_d, got_s = tk._cell_argmin_u8(x, cells, tk.integer_tree(fine))
+    want_d, want_s = tk._cell_argmin(x.float(), cells,
+                                     tk._augmented_fine(fine))
+    assert torch.equal(got_d, want_d)
+    assert torch.equal(got_s.long(), want_s)
+
+
+@pytest.mark.parametrize("probes,hi", [(1, 4), (3, 4), (4, 4), (2, 256),
+                                       (4, 256)])
+def test_descend_kernel_path_matches_reference_on_integer_tree(probes, hi):
+    """The kernel path on uint8 rows against cvt_tpu's
+    `hierarchical_assign` on the same values as float32: word ids and
+    distances bitwise, with words repeated inside cells, a cell of one
+    repeated word and two coarse cells at one distance (the first
+    minimum, the earlier probe and the nearer-first probe order decide
+    every tie alike)."""
+    x, coarse, fine = _integer_tree(4, 128, 16, 10 + probes, hi)
+    pairs = VD.vocab_descend.pairs
+    w, d = _kernel_path(x, coarse, fine, probes, chunk=700)
+    assert VD.vocab_descend.pairs - pairs == 3000 * probes
+    jw, jd = jk.hierarchical_assign(x.numpy().astype(np.float32),
+                                    jnp.asarray(coarse.numpy()),
+                                    jnp.asarray(fine.numpy()), probes=probes)
+    np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
+    np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("case", ["float_rows", "float_tree", "over_255",
+                                  "negative", "narrow_k2"])
+def test_descend_dispatch_keeps_float_path(case):
+    """Float rows (no uint8 rows given), a float tree, words outside 0-255
+    or a shape the kernel does not take (no `integer_tree`) keep the
+    float path: the wrapper scores no pair and launches nothing, and the
+    result is the float path's."""
+    x, coarse, fine = _integer_tree(4, 128, 16, 7)
+    rows = x
+    if case == "float_rows":
+        rows = None
+    elif case == "float_tree":
+        fine = fine + 0.25
+    elif case == "over_255":
+        fine[0, 0, 0] = 256.0
+    elif case == "negative":
+        fine[0, 0, 0] = -1.0
+    else:
+        fine = fine[:, :96].contiguous()
+    tree = tk.integer_tree(fine)
+    assert (tree is None) == (case != "float_rows")
+    pairs, launches = VD.vocab_descend.pairs, VD.vocab_descend.launches
+    w, d = tk.hierarchical_assign(x.float(), coarse, fine, probes=3,
+                                  device="cpu", tree=tree, rows=rows)
+    assert (VD.vocab_descend.pairs, VD.vocab_descend.launches) == (
+        pairs, launches)
+    want = tk._hier_assign_chunk(x.float(), coarse, fine, 3)
+    assert torch.equal(w, want[0]) and torch.equal(d, want[1])
+
+
+def test_integer_tree_words_and_norms():
+    """`integer_tree` gives the words as uint8 and ||f||^2 as int32,
+    exact at the byte's ends; rows that are not uint8 of x's shape are
+    refused."""
+    x, coarse, fine = _integer_tree(4, 128, 16, 3, hi=256)
+    tree = tk.integer_tree(fine)
+    assert tree.words.dtype == torch.uint8 and tree.fsq.dtype == torch.int32
+    assert torch.equal(tree.words.float(), fine)
+    assert torch.equal(tree.fsq.long(), (fine.long() ** 2).sum(-1))
+    assert int(tree.fsq[3, 0]) == 16 * 255 * 255 and int(tree.fsq[3, 1]) == 0
+    with pytest.raises(ValueError, match="uint8"):
+        tk.hierarchical_assign(x.float(), coarse, fine, probes=2,
+                               device="cpu", tree=tree, rows=x.float())
+    with pytest.raises(ValueError, match="uint8"):
+        tk.hierarchical_assign(x.float(), coarse, fine, probes=2,
+                               device="cpu", tree=tree, rows=x[:10])
+
+
+def test_index_keeps_the_float_path_on_the_cpu():
+    """A VocabHEIndex on the CPU makes no `integer_tree` (the float path
+    gives the same bits there), also for a tree assigned as a plain
+    attribute: uint8 rows are encoded by the float path alone."""
+    from cvt_tpu_torch.index.vocab_he import VocabHEIndex
+    x, coarse, fine = _integer_tree(4, 128, 16, 5, hi=256)
+    idx = VocabHEIndex(n_words=4 * 128, dim=16, hierarchical=True,
+                       probes=3, device="cpu")
+    idx.coarse, idx.fine = coarse, fine
+    assert idx._tree is None and idx.fine is fine
+    pairs = VD.vocab_descend.pairs
+    want, _ = tk.hierarchical_assign(x.float(), coarse, fine, probes=3,
+                                     device="cpu")
+    xf, rows = idx._stage(x.numpy())
+    assert torch.equal(rows, x) and torch.equal(xf, x.float())
+    assert torch.equal(idx._assign(xf, rows), want)
+    assert VD.vocab_descend.pairs == pairs

@@ -70,7 +70,7 @@ STAGES = {
     "orient": ["prep(base)", "prep+gathers only", "prep+hist/peaks only",
                "prep+orient full"]}
 NO_LAUNCHES = {"adc_segmin": 0, "adc_segmin_cached": 0, "ivf_page": 0,
-               "ivf_rescore": 0, "vocab_score": 0}
+               "ivf_rescore": 0, "vocab_score": 0, "vocab_descend": 0}
 
 
 @pytest.fixture(autouse=True)
