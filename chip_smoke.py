@@ -367,10 +367,11 @@ import time
 import numpy as np
 import torch
 
-from cvt_tpu_torch.ops.kernels import (compare_ivf_kernel,
-                                       compare_kernel_to_twin,
-                                       compare_rescore_kernel, launch_counts,
-                                       recorded_args, zero_launch_counts)
+from cvt_tpu_torch.ops.kernels import (launch_counts, recorded_args,
+                                       zero_launch_counts)
+from cvt_tpu_torch.ops.kernels.adc_scan import compare_kernel_to_twin
+from cvt_tpu_torch.ops.kernels.ivf_scan import (compare_ivf_kernel,
+                                                compare_rescore_kernel)
 from cvt_tpu_torch.utils.profile import (HBM_BYTES_PER_S, adc_bound, bound,
                                          card_line, ivf_bound, live_slots)
 

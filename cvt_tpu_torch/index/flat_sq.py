@@ -53,7 +53,7 @@ def _sq_scan(r_scaled, r_sq, codes_s8, term3, k: int, mode: str, chunk: int,
     else:
         lhs = r_scaled.to(torch.bfloat16).float().T
     # the products are copied to [B, chunk] rows: the selection below reads
-    # rows, and a strided row costs it ~1.8x (_prof_topk_torch.py's sweep)
+    # rows, and a strided row costs it ~1.8x (the top-k sweep, CHANGES.md)
     best_d = torch.full((b, k), float("inf"), device=r_sq.device)
     best_i = torch.full((b, k), -1, dtype=torch.int32, device=r_sq.device)
     for base in range(0, codes_s8.shape[0], chunk):

@@ -24,34 +24,6 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-# C signatures of csrc/*.cu, declared so that ctypes never passes a
-# pointer as a 32-bit int
-_SIGNATURES = {
-    # codes, cb_q, q2s, s2, qs, npad, m, k_sub, ds, bpad, n_valid,
-    # tile_n, seg, vcap, ibase, segpack, tiletop, stream
-    "cvt_adc_segmin": [_P, _P, _P, _P, _P] + [_I] * 10 + [_P, _P, _P],
-    # dec8_t, norm_col, q2s, qs, npad, d, bpad, n_valid, tile_n, seg,
-    # vcap, ibase, segpack, tiletop, stream
-    "cvt_adc_segmin_cached": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P, _P],
-    # sel, n_live, qs, dec8_t, nrm_col, cip, q2s, n_sel, n_rows, d, bpad,
-    # lp, seg, marker, segpack, stream
-    "cvt_ivf_pages_segmin": [_P] * 7 + [_I] * 7 + [_P, _P],
-    # segpack, n_live, sel, rowids, seg_cell, dec16, srow16, nrm_col,
-    # dsq_min, q, q_sq, coarse_ip, probed, b, bpad, n_slots, spt, seg,
-    # n_rows, d, kc, n_take, k, exact_probe, nt, n_chunks, chunk_rows,
-    # cand, win, lo, key_g, id_g, out_d, out_i, stream
-    "cvt_ivf_rescore": [_P] * 8 + [_F] + [_P] * 4 + [_I] * 14 + [_P] * 8,
-    # f_word, f_sig, f_query, cum, n_feat, offsets, e_img, e_sig, e_burst,
-    # idf, wtab, max_dist, n_images, blocks, out, stream
-    "cvt_vocab_score": [_P] * 4 + [_I] + [_P] * 6 + [_I] * 3 + [_P, _P],
-    # rows, d, probes, order, tiles, n_tiles, words, fsq, k2, out_d, out_s,
-    # stream
-    "cvt_vocab_descend": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P],
-}
-
 
 def _sources() -> list[str]:
     return sorted(os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
@@ -119,13 +91,9 @@ def build() -> str:
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, with every C
-    function's argument types declared."""
+    """Build (if needed) and load the kernel library. Each kernel's
+    argument types are declared with its launch (`ops.kernels.Kernel`)."""
     lib = ctypes.CDLL(build())
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
     lib.cvt_error_string.argtypes = [ctypes.c_int]
     lib.cvt_error_string.restype = ctypes.c_char_p
     return lib

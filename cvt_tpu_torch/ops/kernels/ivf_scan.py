@@ -18,17 +18,15 @@ probed lists' top-k and not the batch union's.
 
 Phase 1 is the hand-written CUDA kernel `ivf_page_kernel`
 (`csrc/ivf_scan.cu`, int8 tensor cores) for tensors on the card and its
-plain PyTorch twin `ivf_pages_segmin_plain` for tensors on the CPU; the
-wrapper `ivf_pages_segmin` counts its launches in `.launches` (and, while
-`.recorded` is a list, appends each call's arguments to it) and never
-falls back from one to the other. `sel` pads the probed pages to a fixed
-length with fill slots; both skip the slots past `n_live` (a one-element
-tensor, read on the device) and write INT32_MAX there. Phase 2 takes the
-k+slack best segments per query and rescores their rows exactly in f32
-from an int16 decode: the hand-written CUDA kernel `ivf_rescore_kernel`
-(`csrc/ivf_rescore.cu`) on the card, its twin `ivf_rescore_plain` (the
-plain PyTorch phase 2) on the CPU, behind the wrapper `ivf_rescore`,
-counted and recorded like the page scan's.
+plain PyTorch twin `ivf_pages_segmin_plain` for tensors on the CPU,
+behind the wrapper `ivf_pages_segmin` (`ops.kernels.Kernel`). `sel` pads
+the probed pages to a fixed length with fill slots; both skip the slots
+past `n_live` (a one-element tensor, read on the device) and write
+INT32_MAX there. Phase 2 takes the k+slack best segments per query and
+rescores their rows exactly in f32 from an int16 decode: the
+hand-written CUDA kernel `ivf_rescore_kernel` (`csrc/ivf_rescore.cu`) on
+the card, its twin `ivf_rescore_plain` (the plain PyTorch phase 2) on
+the CPU, behind the wrapper `ivf_rescore`.
 
 Integer packing (key = (ip + norm_i + cip_i) * seg + lane) and its bounds
 are those of `_ivf_pack_caps`. The clips run in float32, so a pad row's
@@ -45,7 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cvt_tpu_torch.ops.kernels import _build
+from cvt_tpu_torch.ops.kernels import kernel
 from cvt_tpu_torch.ops.kernels.adc_scan import (SMEM_LIMIT, _fold_queries,
                                                 _quantize_codebooks)
 from cvt_tpu_torch.ops.topk import top_k_smallest
@@ -184,44 +182,41 @@ def _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int, seg: int,
                          f"sel [S]; got {tuple(cip.shape)}")
 
 
+def compare_ivf_kernel(args) -> dict:
+    """The ivf_page kernel against its twin on the same arguments (it sums
+    no floats): bitwise, or raise."""
+    got = ivf_pages_segmin(*args)
+    want = ivf_pages_segmin_plain(*args)
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError(f"ivf_page kernel differs from its twin by "
+                             f"{err}")
+    return {"max_abs_err": err, "shape": list(got.shape)}
+
+
+@kernel("ivf_page", symbol="cvt_ivf_pages_segmin", args="ppppppp iiiiiii pp",
+        twin=ivf_pages_segmin_plain, compare=compare_ivf_kernel,
+        span="kernel.ivf_page")
 def ivf_pages_segmin(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int, seg: int,
                      n_live=None):
     """Phase 1 over the selected pages -> segpack [S*spt, Bpad] int32.
 
     Arguments as `ivf_pages_segmin_plain`. Tensors on the CPU run the
-    twin; tensors on the card launch `ivf_page_kernel` (counted in
-    `ivf_pages_segmin.launches`), which reads n_live on the device, so
-    nothing waits on the host; any other device raises. Traced, the call
-    is one `kernel.ivf_page` span."""
-    with span("kernel.ivf_page"):
-        if ivf_pages_segmin.recorded is not None:
-            ivf_pages_segmin.recorded.append((q2s, qs, dec8_t, nrm_col, cip,
-                                              sel, lp, seg, n_live))
-        if q2s.device.type == "cpu":
-            return ivf_pages_segmin_plain(q2s, qs, dec8_t, nrm_col, cip, sel,
-                                          lp, seg, n_live)
-        if q2s.device.type != "cuda":
-            raise ValueError(f"no ivf_page kernel for {q2s.device}")
-        _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp, seg, n_live)
-        bpad, d = q2s.shape
-        _, marker = _ivf_pack_caps(seg, d)
-        s = sel.shape[0]
-        segpack = torch.empty((s * (lp // seg), bpad), dtype=torch.int32,
-                              device=q2s.device)
-        lib = _build.load()
-        with torch.cuda.device(q2s.device):
-            _build.check(lib, lib.cvt_ivf_pages_segmin(
-                sel.data_ptr(), None if n_live is None else n_live.data_ptr(),
-                qs.data_ptr(), dec8_t.data_ptr(),
-                nrm_col.data_ptr(), cip.data_ptr(), q2s.data_ptr(), s,
-                dec8_t.shape[1], d, bpad, lp, seg, marker, segpack.data_ptr(),
-                torch.cuda.current_stream().cuda_stream), "ivf_pages_segmin")
-        ivf_pages_segmin.launches += 1
-        return segpack
-
-
-ivf_pages_segmin.launches = 0
-ivf_pages_segmin.recorded = None
+    twin; tensors on the card launch `ivf_page_kernel`, which reads n_live
+    on the device, so nothing waits on the host; any other device raises.
+    Traced, the call is one `kernel.ivf_page` span."""
+    _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp, seg, n_live)
+    bpad, d = q2s.shape
+    _, marker = _ivf_pack_caps(seg, d)
+    s = sel.shape[0]
+    segpack = torch.empty((s * (lp // seg), bpad), dtype=torch.int32,
+                          device=q2s.device)
+    ivf_pages_segmin.launch(
+        sel.data_ptr(), None if n_live is None else n_live.data_ptr(),
+        qs.data_ptr(), dec8_t.data_ptr(), nrm_col.data_ptr(), cip.data_ptr(),
+        q2s.data_ptr(), s, dec8_t.shape[1], d, bpad, lp, seg, marker,
+        segpack.data_ptr())
+    return segpack
 
 
 def ivf_rescore_plain(segpack, n_live, sel, rowids, seg_cell, dec16_rm,
@@ -391,6 +386,75 @@ def _check_rescore(segpack, n_live, sel, rowids, seg_cell, dec16_rm, srow16,
                          f"(227 KB) limit")
 
 
+def rescore_tolerance(args) -> torch.Tensor:
+    """[B, 1] bound on |kernel - twin| of an `ivf_rescore` distance on
+    `args`: the twin rounds each product of the inner product and sums them
+    in torch's order, the kernel fuses them and sums in its own, so each
+    is within D * 2^-24 * sum_i |q_i srow16_i dec_i| of the exact sum; the
+    distance takes -2 of it, and a few ulp of its size besides. The sum of
+    |products| is bounded by ||q * srow16|| * the largest row norm."""
+    dec16, srow16, q, q_sq = args[5], args[6], args[9], args[10]
+    u = 2.0 ** -24
+    rows = torch.linalg.vector_norm(dec16.double(), dim=1).amax()
+    qf = torch.linalg.vector_norm(q.double() * srow16.double(), dim=1)
+    size = q_sq.double().abs() + 2 * qf * rows
+    return (4 * q.shape[1] * u * qf * rows + 8 * u * size)[:, None]
+
+
+def compare_rescore_kernel(args) -> dict:
+    """The ivf_rescore kernel against its twin on the same arguments (an
+    `ivf_rescore` call's own): the same slots finite, distances within
+    `rescore_tolerance`, no id twice in a row, and ids equal except at
+    near-ties: where the kernel's id differs from the twin's, the twin's
+    distance of the kernel's id (the twin run over the whole candidate
+    pool) lies within twice the tolerance of that slot's; raise otherwise.
+    Returns the largest error, its share of the tolerance, and the slots
+    whose ids differ as (query, slot, kernel id, twin id)."""
+    got_d, got_i = ivf_rescore(*args)
+    want_d, want_i = ivf_rescore_plain(*args)
+    tol = rescore_tolerance(args)
+    fin = torch.isfinite(want_d)
+    if not torch.equal(torch.isfinite(got_d), fin):
+        raise AssertionError("ivf_rescore kernel: finite slots differ")
+    if bool((got_i[~fin] != -1).any()):
+        raise AssertionError("ivf_rescore kernel: an id past the pool")
+    err = torch.where(fin, (got_d.double() - want_d.double()).abs(), 0.0)
+    if bool((err > tol).any()):
+        raise AssertionError(f"ivf_rescore kernel: distance off by "
+                             f"{float(err.max())}, over its tolerance")
+    ids = torch.where(fin, got_i, -1).sort(dim=1).values
+    if bool(((ids[:, 1:] == ids[:, :-1]) & (ids[:, 1:] >= 0)).any()):
+        raise AssertionError("ivf_rescore kernel: an id twice in a row")
+    differ = torch.nonzero(got_i != want_i).tolist()
+    if differ:
+        segpack, seg, k, slack = args[0], args[13], args[14], args[15]
+        pool = min(k + slack, segpack.shape[0]) * seg
+        pool_d, pool_i = (x.cpu() for x in ivf_rescore_plain(
+            *args[:14], pool, k + slack - pool, *args[16:]))
+        gi, wd, t = got_i.cpu(), want_d.double().cpu(), tol.cpu()
+        for r, c in differ:
+            hit = pool_i[r] == gi[r, c]
+            if not bool(hit.any()):
+                raise AssertionError(f"ivf_rescore kernel: id {int(gi[r, c])}"
+                                     f" at query {r} is not a candidate")
+            gap = (pool_d[r][hit].double() - wd[r, c]).abs().min()
+            if float(gap) > 2 * float(t[r, 0]):
+                raise AssertionError(f"ivf_rescore kernel: id differs from "
+                                     f"its twin's at query {r}, slot {c}, "
+                                     f"not a near-tie")
+    wi = want_i.cpu()
+    return {"max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "max_err_share_of_tol": float((err / tol).max())
+            if err.numel() else 0.0,
+            "ids_differ": len(differ),
+            "differ": [(r, c, int(got_i[r, c]), int(wi[r, c]))
+                       for r, c in differ[:20]],
+            "shape": list(got_i.shape)}
+
+
+@kernel("ivf_rescore", symbol="cvt_ivf_rescore",
+        args="pppppppp f pppp iiiiiiiiiiiiii pppppppp",
+        twin=ivf_rescore_plain, compare=compare_rescore_kernel, device="q")
 def ivf_rescore(segpack, n_live, sel, rowids, seg_cell, dec16_rm, srow16,
                 nrm_col, dsq_min: float, q, q_sq, coarse_ip, probed_bk,
                 seg: int, k: int, slack: int = 6, exact_probe: bool = True):
@@ -400,22 +464,10 @@ def ivf_rescore(segpack, n_live, sel, rowids, seg_cell, dec16_rm, srow16,
     the twin (its `ivf.rescore` and `ivf.select` spans); tensors on the
     card launch `ivf_rescore_kernel` (csrc/ivf_rescore.cu: a selection
     pass, then one block per query; for k + slack above 64 the selection
-    runs in rounds of 64), counted once a call in `ivf_rescore.launches`,
-    inside one `ivf.rescore` span. It reads n_live on the device, so
-    nothing waits on the host, and writes no copy of segpack and no [B, C,
-    D] rows. Any other device raises."""
-    if ivf_rescore.recorded is not None:
-        ivf_rescore.recorded.append((segpack, n_live, sel, rowids, seg_cell,
-                                     dec16_rm, srow16, nrm_col, dsq_min, q,
-                                     q_sq, coarse_ip, probed_bk, seg, k,
-                                     slack, exact_probe))
-    if q.device.type == "cpu":
-        return ivf_rescore_plain(segpack, n_live, sel, rowids, seg_cell,
-                                 dec16_rm, srow16, nrm_col, dsq_min, q, q_sq,
-                                 coarse_ip, probed_bk, seg, k, slack,
-                                 exact_probe)
-    if q.device.type != "cuda":
-        raise ValueError(f"no ivf_rescore kernel for {q.device}")
+    runs in rounds of 64), counted once a call, inside one `ivf.rescore`
+    span. It reads n_live on the device, so nothing waits on the host, and
+    writes no copy of segpack and no [B, C, D] rows. Any other device
+    raises."""
     with span("ivf.rescore"):
         _check_rescore(segpack, n_live, sel, rowids, seg_cell, dec16_rm,
                        srow16, nrm_col, q, q_sq, coarse_ip, probed_bk, seg, k,
@@ -441,25 +493,17 @@ def ivf_rescore(segpack, n_live, sel, rowids, seg_cell, dec16_rm, srow16,
         key_g = empty((b, n_take * seg) if spill else 0, dtype=torch.int64)
         id_g = empty((b, n_take * seg) if spill else 0, dtype=torch.int32)
         ptr = lambda t: t.data_ptr() if t.numel() else None
-        lib = _build.load()
-        with torch.cuda.device(q.device):
-            _build.check(lib, lib.cvt_ivf_rescore(
-                segpack.data_ptr(), n_live.data_ptr(), sel.data_ptr(),
-                rowids.data_ptr(), seg_cell.data_ptr(), dec16_rm.data_ptr(),
-                srow16.data_ptr(), nrm_col.data_ptr(), dsq_min, q.data_ptr(),
-                q_sq.data_ptr(), coarse_ip.data_ptr(), probed_bk.data_ptr(),
-                b, segpack.shape[1], sel.shape[0], n_segs // sel.shape[0],
-                seg, dec16_rm.shape[0], d, coarse_ip.shape[1], n_take, k,
-                int(exact_probe), nt, n_chunks, chunk_rows, cand.data_ptr(),
-                ptr(win), ptr(lo), ptr(key_g), ptr(id_g),
-                out_d.data_ptr(), out_i.data_ptr(),
-                torch.cuda.current_stream().cuda_stream), "ivf_rescore")
-        ivf_rescore.launches += 1
+        ivf_rescore.launch(
+            segpack.data_ptr(), n_live.data_ptr(), sel.data_ptr(),
+            rowids.data_ptr(), seg_cell.data_ptr(), dec16_rm.data_ptr(),
+            srow16.data_ptr(), nrm_col.data_ptr(), dsq_min, q.data_ptr(),
+            q_sq.data_ptr(), coarse_ip.data_ptr(), probed_bk.data_ptr(),
+            b, segpack.shape[1], sel.shape[0], n_segs // sel.shape[0], seg,
+            dec16_rm.shape[0], d, coarse_ip.shape[1], n_take, k,
+            int(exact_probe), nt, n_chunks, chunk_rows, cand.data_ptr(),
+            ptr(win), ptr(lo), ptr(key_g), ptr(id_g), out_d.data_ptr(),
+            out_i.data_ptr())
         return out_d, out_i
-
-
-ivf_rescore.launches = 0
-ivf_rescore.recorded = None
 
 
 def coarse_probes(q, centroids, nprobe: int):

@@ -11,21 +11,20 @@ int32 their squared norms. Returns (dist [n] int32, sub [n] int32), by
 pair: the smallest fsq[c, j] - 2<rows[p // probes], words[c, j]> over
 the pair's cell c and the first j that reaches it.
 
-`vocab_descend` launches the hand-written CUDA kernel
-`vocab_descend_kernel` (`csrc/vocab_descend.cu`: uint8 wgmma, the
-argmin in its epilogue) for tensors on the card and runs the plain twin
-`vocab_descend_plain` for tensors on the CPU; it counts its launches in
-`.launches` and the pairs it scored, on either path, in `.pairs` (and,
-while `.recorded` is a list, appends each call's arguments to it), and
-never falls back from one to the other. Every product and sum is an
-integer below 2^25 in magnitude, so both give the same bits.
+`vocab_descend` (`ops.kernels.Kernel`) launches the hand-written CUDA
+kernel `vocab_descend_kernel` (`csrc/vocab_descend.cu`: uint8 wgmma,
+the argmin in its epilogue) for tensors on the card and runs the plain
+twin `vocab_descend_plain` for tensors on the CPU; besides its launches
+it counts the pairs of every call, on either path, in `.pairs`. Every
+product and sum is an integer below 2^25 in magnitude, so both give the
+same bits.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cvt_tpu_torch.ops.kernels import _build
+from cvt_tpu_torch.ops.kernels import kernel
 
 TILE = 512                    # pairs of one cell a tile at most
 MAX_D = 128                   # one 128-byte panel of K
@@ -95,40 +94,39 @@ def _check(rows, order, tiles, words, fsq, probes: int) -> None:
                          "aligned")
 
 
+def compare_descend_kernel(args) -> dict:
+    """The vocab_descend kernel against its twin on the same arguments,
+    the twin run where they lie (it sums integers in float64, exactly):
+    distances and word ids bitwise, or raise."""
+    got_d, got_s = vocab_descend(*args)
+    want_d, want_s = vocab_descend_plain(*args)
+    err = int((got_d.long() - want_d.long()).abs().max()) \
+        if got_d.numel() else 0
+    ids_differ = int((got_s != want_s).sum())
+    if err or ids_differ:
+        raise AssertionError(f"vocab_descend kernel differs from its twin: "
+                             f"max|diff| {err}, {ids_differ} ids")
+    return {"max_abs_err": err, "ids_differ": ids_differ,
+            "pairs": int(got_d.numel()), "tiles": int(args[2].shape[0])}
+
+
+@kernel("vocab_descend", symbol="cvt_vocab_descend", args="pii ppi ppi ppp",
+        twin=vocab_descend_plain, compare=compare_descend_kernel,
+        check=_check, counts={"pairs": lambda _, order, *a: order.shape[0]})
 def vocab_descend(rows, order, tiles, words, fsq, probes: int):
     """-> (dist [n] int32, sub [n] int32) (the module's contract).
 
     Tensors on the CPU run the twin; tensors on the card launch
     `vocab_descend_kernel` once a call, one block a tile. Any other
     device raises."""
-    if vocab_descend.recorded is not None:
-        vocab_descend.recorded.append((rows, order, tiles, words, fsq,
-                                       probes))
-    _check(rows, order, tiles, words, fsq, probes)
     dev = rows.device
     n = order.shape[0]
-    if dev.type == "cpu":
-        out = vocab_descend_plain(rows, order, tiles, words, fsq, probes)
-        vocab_descend.pairs += n
-        return out
-    if dev.type != "cuda":
-        raise ValueError(f"no vocab_descend kernel for {dev}")
     dist = torch.empty(n, dtype=torch.int32, device=dev)
     sub = torch.empty(n, dtype=torch.int32, device=dev)
     if tiles.shape[0] == 0:
         return dist, sub
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        _build.check(lib, lib.cvt_vocab_descend(
-            rows.data_ptr(), rows.shape[1], probes, order.data_ptr(),
-            tiles.data_ptr(), tiles.shape[0], words.data_ptr(),
-            fsq.data_ptr(), words.shape[1], dist.data_ptr(), sub.data_ptr(),
-            torch.cuda.current_stream().cuda_stream), "vocab_descend")
-    vocab_descend.launches += 1
-    vocab_descend.pairs += n
+    vocab_descend.launch(
+        rows.data_ptr(), rows.shape[1], probes, order.data_ptr(),
+        tiles.data_ptr(), tiles.shape[0], words.data_ptr(), fsq.data_ptr(),
+        words.shape[1], dist.data_ptr(), sub.data_ptr())
     return dist, sub
-
-
-vocab_descend.launches = 0
-vocab_descend.pairs = 0
-vocab_descend.recorded = None

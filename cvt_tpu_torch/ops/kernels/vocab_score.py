@@ -13,11 +13,10 @@ entry's image, in float64, and the [Q, n_images] sums are rounded to
 float32 once (inverted_file.h:295-353; wtab[h] = exp(-h^2 / sigma^2),
 utils.h:52-83, is the caller's table).
 
-`vocab_score` launches the hand-written CUDA kernel `vocab_score_kernel`
-(`csrc/vocab_score.cu`) for tensors on the card and runs the plain twin
-`vocab_score_plain` for tensors on the CPU; it counts its launches in
-`.launches` (and, while `.recorded` is a list, appends each call's
-arguments to it) and never falls back from one to the other. Both form
+`vocab_score` (`ops.kernels.Kernel`) launches the hand-written CUDA
+kernel `vocab_score_kernel` (`csrc/vocab_score.cu`) for tensors on the
+card and runs the plain twin `vocab_score_plain` for tensors on the CPU.
+Both form
 the same float32 terms from the same table; the float64 sums may differ
 in order, so the float32 results agree bitwise bar a sum within ~1e-13
 of a rounding boundary.
@@ -28,8 +27,7 @@ from __future__ import annotations
 import torch
 
 from cvt_tpu_torch.ops.bits import _hamming
-from cvt_tpu_torch.ops.kernels import _build
-from cvt_tpu_torch.utils.profile import span
+from cvt_tpu_torch.ops.kernels import kernel
 
 _TWIN_PAIRS = 1 << 24         # pairs the twin scores per step
 _BLOCKS_PER_SM = 8
@@ -73,7 +71,7 @@ def vocab_score_plain(f_word, f_sig, f_query, offsets, e_img, e_sig,
 
 
 def _check(f_word, f_sig, f_query, offsets, e_img, e_sig, e_burst, idf,
-           wtab) -> None:
+           wtab, *_) -> None:
     want = {"f_word": (f_word, torch.int32), "f_sig": (f_sig, torch.int64),
             "f_query": (f_query, torch.int32),
             "offsets": (offsets, torch.int64), "e_img": (e_img, torch.int32),
@@ -98,6 +96,27 @@ def _check(f_word, f_sig, f_query, offsets, e_img, e_sig, e_burst, idf,
         raise ValueError("vocab_score: entry arrays differ in length")
 
 
+def compare_vocab_kernel(args) -> dict:
+    """The vocab_score kernel against its twin on the same arguments: the
+    same float32 terms summed in float64 in another order, so every score
+    within 2^-23 of its size (a float32 rounding apart, for a sum at a
+    rounding boundary); raise otherwise."""
+    got = vocab_score(*args).cpu()
+    want = vocab_score_plain(*(a.cpu() if torch.is_tensor(a) else a
+                                 for a in args))
+    err = (got.double() - want.double()).abs()
+    bad = err > 2.0 ** -23 * want.double().abs()
+    if bool(bad.any()):
+        raise AssertionError(f"vocab_score kernel differs from its twin by "
+                             f"{float(err.max())}")
+    return {"max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "scores_differ": int((err > 0).sum()),
+            "shape": list(got.shape)}
+
+
+@kernel("vocab_score", symbol="cvt_vocab_score", args="pppp i pppppp iii pp",
+        twin=vocab_score_plain, compare=compare_vocab_kernel, check=_check,
+        span="kernel.vocab_score")
 def vocab_score(f_word, f_sig, f_query, offsets, e_img, e_sig, e_burst, idf,
                 wtab, n_queries: int, n_images: int):
     """-> float32 scores [n_queries, n_images] (the module's contract).
@@ -106,39 +125,16 @@ def vocab_score(f_word, f_sig, f_query, offsets, e_img, e_sig, e_burst, idf,
     `vocab_score_kernel` once a call, inside one `kernel.vocab_score`
     span with the lists' prefix sum and the zeroed float64 block. Any
     other device raises."""
-    if vocab_score.recorded is not None:
-        vocab_score.recorded.append((f_word, f_sig, f_query, offsets, e_img,
-                                     e_sig, e_burst, idf, wtab, n_queries,
-                                     n_images))
-    with span("kernel.vocab_score"):
-        _check(f_word, f_sig, f_query, offsets, e_img, e_sig, e_burst, idf,
-               wtab)
-        dev = f_word.device
-        if dev.type == "cpu":
-            return vocab_score_plain(f_word, f_sig, f_query, offsets, e_img,
-                                     e_sig, e_burst, idf, wtab, n_queries,
-                                     n_images)
-        if dev.type != "cuda":
-            raise ValueError(f"no vocab_score kernel for {dev}")
-        out = torch.zeros((n_queries, n_images), dtype=torch.float64,
-                          device=dev)
-        n_feat = f_word.shape[0]
-        if n_feat == 0 or out.numel() == 0:
-            return out.float()
-        cum = torch.cumsum(_lengths(f_word, offsets), 0)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        lib = _build.load()
-        with torch.cuda.device(dev):
-            _build.check(lib, lib.cvt_vocab_score(
-                f_word.data_ptr(), f_sig.data_ptr(), f_query.data_ptr(),
-                cum.data_ptr(), n_feat, offsets.data_ptr(), e_img.data_ptr(),
-                e_sig.data_ptr(), e_burst.data_ptr(), idf.data_ptr(),
-                wtab.data_ptr(), wtab.shape[0] - 1, n_images,
-                sms * _BLOCKS_PER_SM, out.data_ptr(),
-                torch.cuda.current_stream().cuda_stream), "vocab_score")
-        vocab_score.launches += 1
+    dev = f_word.device
+    out = torch.zeros((n_queries, n_images), dtype=torch.float64, device=dev)
+    n_feat = f_word.shape[0]
+    if n_feat == 0 or out.numel() == 0:
         return out.float()
-
-
-vocab_score.launches = 0
-vocab_score.recorded = None
+    cum = torch.cumsum(_lengths(f_word, offsets), 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    vocab_score.launch(
+        f_word.data_ptr(), f_sig.data_ptr(), f_query.data_ptr(),
+        cum.data_ptr(), n_feat, offsets.data_ptr(), e_img.data_ptr(),
+        e_sig.data_ptr(), e_burst.data_ptr(), idf.data_ptr(), wtab.data_ptr(),
+        wtab.shape[0] - 1, n_images, sms * _BLOCKS_PER_SM, out.data_ptr())
+    return out.float()

@@ -22,7 +22,7 @@ from cvt_tpu_torch.ops.linalg import pairwise_distance
 # sort costs no more than the selection's passes over the row. Rows of at
 # most _SORT_MAX_ROW elements, or calls of at most _SORT_MAX_ELEMS in all:
 # torch sorts short rows in one pass, and the selection's ~20 kernel
-# launches cost more. On an H100 at k = 10 (_prof_topk_torch.py's sweep):
+# launches cost more. On an H100 at k = 10 (a sweep, CHANGES.md's top-k):
 # rows of 64-1,024, sort 0.06-0.32 ms against 0.31-0.57; [8,192, 4,096]
 # 1.06-1.14 ms both; [256, 16,384] 0.37-0.39 against 0.47-0.58; the
 # selection wins at [256, 65,536] (0.67-0.69 against 1.33-1.46 ms),

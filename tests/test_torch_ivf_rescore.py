@@ -139,7 +139,8 @@ def test_cpu_wrapper_runs_twin_records_and_counts_nothing(monkeypatch):
     with pytest.raises(ValueError):
         T.ivf_rescore(*meta)
     assert any(s.endswith("ivf_rescore.cu") for s in _build._sources())
-    assert "cvt_ivf_rescore" in _build._SIGNATURES
+    assert T.ivf_rescore.symbol == "cvt_ivf_rescore"
+    assert len(T.ivf_rescore.argtypes) == 35
 
 
 @pytest.mark.parametrize("b,n_segs,n_take,sms", [

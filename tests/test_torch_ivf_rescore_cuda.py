@@ -5,9 +5,9 @@ Marked `cuda`: every test takes the `card` fixture, which skips when
 torch.cuda.is_available() is false (decided in the fixture, never at
 import). The kernels are built from csrc/ on first use.
 
-Tolerance (`ops.kernels.compare_rescore_kernel`): the segment ranking is
-exact, so the same rows are scored; the kernel sums each row's inner
-product in another order than the twin, so a distance may differ by
+Tolerance (`ops.kernels.ivf_scan.compare_rescore_kernel`): the segment
+ranking is exact, so the same rows are scored; the kernel sums each row's
+inner product in another order than the twin, so a distance may differ by
 `rescore_tolerance`, a bound relative to the sum of the |products|
 (4 D 2^-24 ||q * srow16|| max ||row||, and 8 ulp of the distance's terms).
 Ids must equal the twin's except at near-ties: where they differ, the
@@ -23,8 +23,9 @@ import torch
 
 from cvt_tpu_torch.index import IVFADCIndex
 from cvt_tpu_torch.io import synthetic_sift
-from cvt_tpu_torch.ops.kernels import compare_rescore_kernel, recorded_args
 from cvt_tpu_torch.ops.kernels import ivf_scan as V
+from cvt_tpu_torch.ops.kernels import recorded_args
+from cvt_tpu_torch.ops.kernels.ivf_scan import compare_rescore_kernel
 from cvt_tpu_torch.quant import ProductQuantizer
 from _ivf_rescore_inputs import KEYS, positional, rescore_args
 

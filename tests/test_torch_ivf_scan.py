@@ -244,4 +244,5 @@ def test_cpu_wrapper_runs_twin_without_building(monkeypatch):
         T.ivf_pages_segmin(q2s.to("meta"), qs.reshape(1), dec8_t, nrm_col,
                            cip, sel, LP, SEG)
     assert any(s.endswith("ivf_scan.cu") for s in _build._sources())
-    assert "cvt_ivf_pages_segmin" in _build._SIGNATURES
+    assert T.ivf_pages_segmin.symbol == "cvt_ivf_pages_segmin"
+    assert len(T.ivf_pages_segmin.argtypes) == 16

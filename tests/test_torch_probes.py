@@ -47,6 +47,7 @@ from cvt_tpu.features import scale_space as jss
 from cvt_tpu_torch.features import descriptor as tdesc
 from cvt_tpu_torch.features.scale_space import OctavePyramid
 from cvt_tpu_torch.io.datasets import procedural_images
+from cvt_tpu_torch.ops.kernels import wrappers
 from cvt_tpu_torch.probes import adc, detect, feat, orient
 from test_torch_features import _angles_close, _hist_gap_ok, _jax_scores
 
@@ -69,8 +70,7 @@ STAGES = {
              f"+desc({2 * K})"],
     "orient": ["prep(base)", "prep+gathers only", "prep+hist/peaks only",
                "prep+orient full"]}
-NO_LAUNCHES = {"adc_segmin": 0, "adc_segmin_cached": 0, "ivf_page": 0,
-               "ivf_rescore": 0, "vocab_score": 0, "vocab_descend": 0}
+NO_LAUNCHES = {name: 0 for name in wrappers()}
 
 
 @pytest.fixture(autouse=True)
