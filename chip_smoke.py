@@ -81,8 +81,8 @@
    kernels (launches summed over the paths that run each, max_abs_err the
    worst of its comparisons, ms / bound at the flat path's shape for the
    ADC kernels, at the nprobe-16 batch for `ivf_page` and at the
-   vocabulary cell's batch for `vocab_score` and `vocab_descend`, every
-   path under
+   vocabulary cell's batch for `vocab_score`, `vocab_descend` and
+   `vocab_coarse`, every path under
    by_path, `ivf_page` at each nprobe under by_nprobe with its live slot
    count; no one PyTorch call computes packed segment minima, so
    library_ms is null) and, last, the device line.
@@ -110,8 +110,9 @@
    by rank within rtol 1e-5, a rank whose score lies within 1e-5 of a
    neighbour's may swap: float32 sums in another order; with
    verification the top-1, the rest counted). The path launches
-   `vocab_score_kernel` (the inverted-file score) and no other kernel of
-   the port: the counts are zeroed before it. Then the same kernel at the
+   `vocab_score_kernel` (the inverted-file score) and
+   `vocab_coarse_kernel` (the descent's coarse level) and no other kernel
+   of the port: the counts are zeroed before it. Then the same kernel at the
    sizes of the benchmark cell `oxford5k-vt1m-he64.q64`: the cell's
    collection (5,062 images, ~16.3M uint8 descriptors), its 1,048,576-word
    tree and its HE projection and thresholds, made from the seed by
@@ -130,7 +131,12 @@
    ids, both 0), the batch's whole descent against the float32 path on
    the same rows (bitwise too), both timed, beside its bound (2 K2 D int8 operations a
    pair; the touched cells' words, the rows and the pairs' 8 bytes in and
-   out, read or written once).
+   out, read or written once). The same for the coarse level's
+   `vocab_coarse_kernel` (launched once a batch): held against its twin
+   by `compare_coarse_kernel` (distances within the float32 summation
+   bound, cells equal but where the twin's distances nearly tie; the
+   near-tie rows and the rows that differ counted), both timed, beside
+   its bound (2 T K1 D FP32 operations at 67 TFLOP/s).
 13. `python -m cvt_tpu_torch.cli vocab_tree_retriever` as a subprocess on
    a FeatureDatabase (io/database.py) holding 8 indexed images and 8
    query images, with --vocab_index at the phase's saved index: its
@@ -384,6 +390,7 @@ IVF_SRC = "cvt_tpu_torch/csrc/ivf_scan.cu"
 RESCORE_SRC = "cvt_tpu_torch/csrc/ivf_rescore.cu"
 VOCAB_SRC = "cvt_tpu_torch/csrc/vocab_score.cu"
 DESCEND_SRC = "cvt_tpu_torch/csrc/vocab_descend.cu"
+COARSE_SRC = "cvt_tpu_torch/csrc/vocab_coarse.cu"
 VOCAB_CELL = "oxford5k-vt1m-he64.q64"      # benchmark cell, step 12's sizes
 # IVF-ADC at the reference operating point (_bench_ivf.py:63-64's training)
 IVF_KC, IVF_M, IVF_SAMPLE, IVF_ITERS, IVF_B = 8192, 16, 262_144, 10, 256
@@ -1338,13 +1345,15 @@ def vocab_data():
     return desc, frames, q, qf.astype(np.float32), src, train
 
 
-def only_vocab_launches(launches: dict) -> None:
+def only_vocab_launches(launches: dict, tree: bool) -> None:
     """A phase that queries the vocabulary index on the card launches
-    `vocab_score_kernel` (its inverted-file score) and no other
-    hand-written kernel."""
-    assert launches.get("vocab_score", 0) > 0, launches
-    assert not any(v for k, v in launches.items() if k != "vocab_score"), \
-        launches
+    `vocab_score_kernel` (its inverted-file score), on a hierarchical tree
+    (`tree`) `vocab_coarse_kernel` too (the descent's coarse level), and
+    no other hand-written kernel."""
+    want = ("vocab_score", "vocab_coarse") if tree else ("vocab_score",)
+    for k in want:
+        assert launches.get(k, 0) > 0, (k, launches)
+    assert not any(v for k, v in launches.items() if k not in want), launches
 
 
 def rankings_agree(ids_a, sc_a, ids_b, sc_b, k: int,
@@ -1422,7 +1431,7 @@ def phase_vocab(stamp: str) -> dict:
     res["launches"] = launch_counts()
     for label in ("probes 8", f"probes 8 + verify {VOCAB_VERIFY}"):
         assert runs[label]["recall_at_1"] >= 0.90, (label, runs[label])
-    only_vocab_launches(res["launches"])
+    only_vocab_launches(res["launches"], tree=True)
 
     # single queries against the batch (probes 8, no verification)
     idx.probes = 8
@@ -1584,6 +1593,49 @@ def descend_bound(args) -> dict:
                 tiles=int(tiles.shape[0]))
 
 
+def coarse_bound(args) -> dict:
+    """`vocab_coarse`'s least time on one call's arguments: 2 T K1 D
+    float32 operations at the FP32 peak (no tensor core forms a float32
+    product exactly), or the bytes read or written once (the points, the
+    centres, 12 B a (point, probe) out), whichever is larger."""
+    x, centres, probes = args
+    (t, d), k1 = x.shape, centres.shape[0]
+    nb = 4 * (x.numel() + centres.numel()) + 12 * t * probes
+    return dict(bound(2.0 * t * k1 * d, nb, PEAK_FP32_FLOPS), rows=t, k1=k1)
+
+
+def run_coarse_cell(system, batch, stamp: str) -> dict:
+    """`vocab_coarse_kernel` on the arguments the cell's batch hands the
+    wrapper: against its twin (distances within the float32 summation
+    bound, cells equal but at near ties; the twin on the card), timed
+    beside the twin and its bound in FP32 operations."""
+    from cvt_tpu_torch.ops.kernels import twin_check
+    from cvt_tpu_torch.ops.kernels import vocab_coarse as VC
+    zero_launch_counts()
+    rows = VC.vocab_coarse.rows
+    args = recorded_args("vocab_coarse", lambda: system.search(batch))
+    launches = launch_counts()["vocab_coarse"]
+    rows = VC.vocab_coarse.rows - rows
+    assert launches == 1 and rows == args[0].shape[0], (launches, rows)
+    cmp = twin_check("vocab_coarse", args)
+    r = share(cuda_ms(lambda: VC.vocab_coarse(*args), 20),
+              coarse_bound(args))
+    r.update(launches=launches, cmp=cmp,
+             plain_ms=cuda_ms(lambda: VC.vocab_coarse_plain(*args), 3))
+    print(f"vocab_coarse at the cell {VOCAB_CELL}: one batch's coarse "
+          f"level, {r['rows']} points against {r['k1']} centres of "
+          f"{args[0].shape[1]}, the first {args[2]}; against the twin "
+          f"max|diff| of the distances {cmp['max_abs_err']:.3g} (bound "
+          f"{cmp['bound_max']:.3g}), {cmp['rows_differ']} rows' cells "
+          f"differ, {cmp['near_rows']} rows with the P-th and (P+1)-th "
+          f"within the bound; kernel {r['ms']:.3f} ms, twin "
+          f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}: {r['ops']:.3e} FP32 ops, "
+          f"{r['bytes'] / 1e6:.1f} MB), {r['bound_share']:.1%} of it "
+          f"{stamp}")
+    return r
+
+
 def run_descend_cell(system, batch, stamp: str) -> dict:
     """`vocab_descend_kernel` on the arguments the cell's batch hands the
     wrapper: against its twin (bitwise), timed beside the twin and its
@@ -1659,6 +1711,7 @@ def run_vocab_cell(stamp: str) -> dict:
              features=int((args[0] >= 0).sum()), images=args[10],
              entries_total=int(args[3][-1]), build_s=build_s)
     r["descend"] = run_descend_cell(system, batch, stamp)
+    r["coarse"] = run_coarse_cell(system, batch, stamp)
     print(f"vocab_score at the cell {VOCAB_CELL} ({r['images']} images, "
           f"{r['entries_total']} entries, {args[3].shape[0] - 1} words; "
           f"index built in {build_s:.1f} s): one batch of {args[9]} query images, "
@@ -1950,7 +2003,7 @@ def phase_retrieval(stamp: str) -> dict:
             "recall_at_5": float(np.mean((ids[:, :5] == src[:, None]).any(1))),
             "ms_per_image": dt / len(src) * 1e3}
     res["launches"] = launch_counts()
-    only_vocab_launches(res["launches"])
+    only_vocab_launches(res["launches"], tree=True)
     res["phase_s"] = time.perf_counter() - t_phase
     return res
 
@@ -2699,7 +2752,7 @@ def run_matching(stamp: str) -> dict:
           f"most {cl['cross_source_max_matches']} matches {stamp}")
     launches = launch_counts()
     print(f"launches during steps 17-18: {launches} {stamp}")
-    only_vocab_launches(launches)
+    only_vocab_launches(launches, tree=False)
     print(f"steps 17-18 took {time.perf_counter() - t_all:.1f} s {stamp}")
     return {"images": mt.pop("_images"), "tables": mt.pop("_tables"),
             "vocab_launches": launches["vocab_score"]}
@@ -5167,7 +5220,18 @@ def main() -> int:
               vc["descend"]["ms"], vc["descend"]["plain_ms"], vc["descend"],
               ids_differ=vc["descend"]["cmp"]["ids_differ"],
               launches_by_path={"cell": vc["descend"]["launches"]},
-              by_path={"cell": path(vc["descend"])})]
+              by_path={"cell": path(vc["descend"])}),
+        entry("vocab_coarse", COARSE_SRC,
+              "none: cvt_tpu takes the coarse top P in jnp "
+              "(_hier_assign_chunk in cvt_tpu/ops/kmeans.py)",
+              vb["launches"]["vocab_coarse"] + vc["coarse"]["launches"],
+              vc["coarse"]["cmp"]["max_abs_err"], vc["coarse"]["ms"],
+              vc["coarse"]["plain_ms"], vc["coarse"],
+              rows_differ=vc["coarse"]["cmp"]["rows_differ"],
+              near_rows=vc["coarse"]["cmp"]["near_rows"],
+              launches_by_path={"vocab": vb["launches"]["vocab_coarse"],
+                                "cell": vc["coarse"]["launches"]},
+              by_path={"cell": path(vc["coarse"])})]
 
     # step 27 last, with every tensor of steps 1-26 dropped, so that the
     # bench's process has the card to itself

@@ -104,12 +104,13 @@ def kernel(name: str, **declared):
 
 def wrappers() -> dict:
     """Each kernel's name and its wrapper."""
-    from cvt_tpu_torch.ops.kernels import (adc_scan, ivf_scan,
+    from cvt_tpu_torch.ops.kernels import (adc_scan, ivf_scan, vocab_coarse,
                                            vocab_descend, vocab_score)
     return {k.name: k for k in (
         adc_scan.adc_segmin, adc_scan.adc_segmin_cached,
         ivf_scan.ivf_pages_segmin, ivf_scan.ivf_rescore,
-        vocab_score.vocab_score, vocab_descend.vocab_descend)}
+        vocab_score.vocab_score, vocab_descend.vocab_descend,
+        vocab_coarse.vocab_coarse)}
 
 
 def launch_counts() -> dict:

@@ -18,9 +18,11 @@ by a running minimum over word blocks (`kmeans_assign_blocked`) and the
 two-level vocabulary (`hierarchical_kmeans`, `hierarchical_assign`), the
 replacement for FLANN's hierarchical k-means tree
 (visual_index.h:624-665). Python loops over chunks, blocks and probes
-stand in for `lax.map` / `lax.scan`. Given uint8 points and a tree of
-integer words (`integer_tree`), the fine level is the hand-written
-`vocab_descend` kernel (ops/kernels/vocab_descend.py).
+stand in for `lax.map` / `lax.scan`. The coarse level is the
+hand-written `vocab_coarse` kernel (ops/kernels/vocab_coarse.py) on the
+card (its plain twin on the CPU); given uint8 points and a tree of integer words
+(`integer_tree`), the fine level is the hand-written `vocab_descend`
+kernel (ops/kernels/vocab_descend.py).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from cvt_tpu_torch.ops.kernels import vocab_coarse as _coarse
 from cvt_tpu_torch.ops.kernels import vocab_descend as _descend
 from cvt_tpu_torch.ops.topk import top_k_largest, top_k_smallest
 from cvt_tpu_torch.utils.device import resolve_device
@@ -449,23 +452,23 @@ def _hier_assign_chunk(xc: torch.Tensor, coarse: torch.Tensor,
                        fine: torch.Tensor, probes: int, fa=None, tree=None,
                        rows=None):
     """One chunk of hierarchical assignment with multi-probe: the
-    `probes` nearest coarse cells per point, an exact argmin inside each
-    (the first minimum), the best (cell, sub) over the probes (strict
-    improvement, so the earlier probe wins a tie). The argmins are taken
-    grouped by cell: given `tree` (`integer_tree(fine)`) and `rows` (xc
-    as uint8) by the descent kernel (`_cell_argmin_u8`), else in
-    float32 (`_cell_argmin`; `fa` is `_augmented_fine(fine)`, made here
-    when not given). Returns (word ids [T] int32 = cell*K2 + sub, squared
-    distance [T]).
+    `probes` nearest coarse cells per point (`vocab_coarse`: the kernel
+    on the card, which takes D up to 128 and probes up to 16, its twin on
+    the CPU), an exact argmin inside each (the first minimum), the best
+    (cell, sub) over the probes (strict improvement, so the earlier probe
+    wins a tie). The argmins are taken grouped by cell: given `tree`
+    (`integer_tree(fine)`) and `rows` (xc as uint8) by the descent kernel
+    (`_cell_argmin_u8`), else in float32 (`_cell_argmin`; `fa` is
+    `_augmented_fine(fine)`, made here when not given). Returns (word
+    ids [T] int32 = cell*K2 + sub, squared distance [T]).
 
     The distances are those of `_hier_assign_gathered` up to float32
     summation order: ||f||^2 enters the GEMM's sum as its last term, and
     ||x||^2 is added to each cell's minimum."""
-    k1, k2, d = fine.shape
+    k2 = fine.shape[1]
     x_sq = torch.sum(xc * xc, -1, keepdim=True)                  # [T, 1]
-    d1 = (x_sq - 2.0 * (xc @ coarse.T)
-          + torch.sum(coarse * coarse, -1)[None, :])             # [T, K1]
-    _, cells = top_k_smallest(d1, probes)                        # [T, P]
+    _, cells = _coarse.vocab_coarse(xc.contiguous(), coarse,
+                                    probes)                      # [T, P]
     if tree is not None and rows is not None:
         dmin, sub = _cell_argmin_u8(rows, cells, tree)
     else:

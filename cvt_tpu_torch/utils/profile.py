@@ -19,10 +19,11 @@ The reference instruments with ad-hoc wall-clock prints
     and a synchronize, to subtract from one-shot host-clock timings;
   * `card_line(device)` — the card's name and power limit as nvidia-smi
     prints them, to stand beside every number taken on it;
-  * `bound(ops, nbytes)`, `adc_bound(args, cached)`, `ivf_bound(args)` —
-    the least time one H100 could take for a kernel call's work (its
-    int8 operations over the int8 peak or its bytes over the memory
-    rate, whichever is larger), from the call's own arguments.
+  * `bound(ops, nbytes[, peak])`, `adc_bound(args, cached)`,
+    `ivf_bound(args)` — the least time one H100 could take for a kernel
+    call's work (its operations over their peak, int8's by default, or
+    its bytes over the memory rate, whichever is larger), from the call's
+    own arguments.
 """
 
 from __future__ import annotations
@@ -164,10 +165,11 @@ def card_line(device=0) -> str:
     return out.stdout.strip()
 
 
-def bound(ops: float, nbytes: float) -> dict:
-    """The least time for the work: bytes over the memory rate or int8
-    operations over the int8 peak, whichever is larger, and which."""
-    t_ops = ops / PEAK_INT8_OPS * 1e3
+def bound(ops: float, nbytes: float, peak: float = PEAK_INT8_OPS) -> dict:
+    """The least time for the work: bytes over the memory rate or
+    operations over their peak (int8's unless `peak` is given), whichever
+    is larger, and which."""
+    t_ops = ops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",

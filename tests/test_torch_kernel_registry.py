@@ -29,7 +29,7 @@ from _ivf_rescore_inputs import positional, rescore_args
 K = importlib.import_module("cvt_tpu_torch.ops.kmeans")
 
 NAMES = ["adc_segmin", "adc_segmin_cached", "ivf_page", "ivf_rescore",
-         "vocab_score", "vocab_descend"]
+         "vocab_score", "vocab_descend", "vocab_coarse"]
 
 
 def _ints(g, lo, hi, shape, dtype):
@@ -87,9 +87,15 @@ def _vocab_descend(g):
             (words.int() ** 2).sum(-1).int(), probes)
 
 
+def _vocab_coarse(g):
+    return (torch.randn((40, 16), generator=g) * 10,
+            torch.randn((20, 16), generator=g) * 10, 3)
+
+
 ARGS = {"adc_segmin": _adc_segmin, "adc_segmin_cached": _adc_segmin_cached,
         "ivf_page": _ivf_page, "ivf_rescore": _ivf_rescore,
-        "vocab_score": _vocab_score, "vocab_descend": _vocab_descend}
+        "vocab_score": _vocab_score, "vocab_descend": _vocab_descend,
+        "vocab_coarse": _vocab_coarse}
 
 
 def _args(name):
