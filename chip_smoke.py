@@ -136,7 +136,22 @@
    by `compare_coarse_kernel` (distances within the float32 summation
    bound, cells equal but where the twin's distances nearly tie; the
    near-tie rows and the rows that differ counted), both timed, beside
-   its bound (2 T K1 D FP32 operations at 67 TFLOP/s).
+   its bound (2 T K1 D FP32 operations at 67 TFLOP/s). Last, the
+   verified cell `oxford5k-vt1m-he64-sv100.q64`: the same collection with
+   its keypoint frames (benchmark/kinds/vocab_sv.py), indexed as
+   benchmark/systems/vocab_sv.py indexes it (add_images with
+   geometries=), one batch of 64 query images sent as the cell sends it
+   (ragged query_batch with counts=, geometries=, verify 100, k 100),
+   the launch counts zeroed just before that call and read from it: one
+   launch each of `vocab_coarse`, `vocab_descend`, `vocab_score` and
+   `vocab_match`, and no other kernel; every query's best answer is
+   itself. `vocab_match_kernel` on the arguments that call handed its
+   wrapper, against its twin (`compare_match_kernel`: the same records
+   once sorted, their number the call's `.matches`), both timed, beside
+   its bound in bytes (each distinct posting entry the batch's words
+   touch, its image at 4 B, its signature and feature at 12 B more where
+   the image is a candidate of a query that walks the list; 12 B a query
+   feature, the int32 candidate table, 16 B a record).
 13. `python -m cvt_tpu_torch.cli vocab_tree_retriever` as a subprocess on
    a FeatureDatabase (io/database.py) holding 8 indexed images and 8
    query images, with --vocab_index at the phase's saved index: its
@@ -391,7 +406,9 @@ RESCORE_SRC = "cvt_tpu_torch/csrc/ivf_rescore.cu"
 VOCAB_SRC = "cvt_tpu_torch/csrc/vocab_score.cu"
 DESCEND_SRC = "cvt_tpu_torch/csrc/vocab_descend.cu"
 COARSE_SRC = "cvt_tpu_torch/csrc/vocab_coarse.cu"
+MATCH_SRC = "cvt_tpu_torch/csrc/vocab_match.cu"
 VOCAB_CELL = "oxford5k-vt1m-he64.q64"      # benchmark cell, step 12's sizes
+VERIFY_CELL = "oxford5k-vt1m-he64-sv100.q64"     # step 12's verified cell
 # IVF-ADC at the reference operating point (_bench_ivf.py:63-64's training)
 IVF_KC, IVF_M, IVF_SAMPLE, IVF_ITERS, IVF_B = 8192, 16, 262_144, 10, 256
 IVF_NPROBES, IVF_REF_NPROBE = (8, 16, 64), 16
@@ -1721,6 +1738,96 @@ def run_vocab_cell(stamp: str) -> dict:
           f"(within 2^-23 of their size); kernel {r['ms']:.3f} ms, twin "
           f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms (bytes: "
           f"{r['bytes'] / 1e6:.1f} MB), {r['bound_share']:.1%} of it {stamp}")
+    del system, pool, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def match_bound(args, records: int) -> dict:
+    """`vocab_match`'s least bytes on one call's arguments and its
+    records: each distinct posting entry the batch's query words touch,
+    its image read once at 4 B, its signature and feature at 12 B more
+    where that image is a candidate of a query with a feature of the
+    entry's word; 12 B a query feature, the [Q, n_images] int32 candidate
+    table read once, 16 B a record written."""
+    f_word, f_query, offsets, e_img, cand = (args[0], args[2], args[3],
+                                             args[4], args[7])
+    ok = f_word >= 0
+    words = torch.unique(f_word[ok].long())
+    entries = int((offsets[words + 1] - offsets[words]).sum())
+    walked = torch.unique(f_query[ok].long() * (offsets.shape[0] - 1)
+                          + f_word[ok].long())
+    q, w = walked // (offsets.shape[0] - 1), walked % (offsets.shape[0] - 1)
+    n = offsets[w + 1] - offsets[w]
+    e = torch.repeat_interleave(offsets[w] - (torch.cumsum(n, 0) - n), n) \
+        + torch.arange(int(n.sum()), device=n.device)
+    hit = cand[torch.repeat_interleave(q, n), e_img[e].long()] >= 0
+    full = int(torch.unique(e[hit]).numel())
+    nb = (4 * entries + 12 * full + 12 * int(ok.sum())
+          + 4 * cand.numel() + 16 * records)
+    return {"bound_ms": nb / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nb, "entries": entries, "candidate_entries": full}
+
+
+def run_verified_cell(stamp: str) -> dict:
+    """Step 12's verified part: one batch of the cell VERIFY_CELL through
+    the ragged verified query_batch, with the launches it makes, and
+    `vocab_match_kernel` on the arguments that batch hands the wrapper:
+    against its twin, timed beside the twin and its bound."""
+    from benchmark import harness
+    from cvt_tpu_torch.ops.kernels import twin_check
+    from cvt_tpu_torch.ops.kernels import vocab_match as VM
+    t0 = time.perf_counter()
+    reg = harness.Registry(os.path.dirname(os.path.abspath(__file__)))
+    cell = reg.cell(VERIFY_CELL)
+    cfg, traffic = reg.config(cell["config"]), reg.traffic(cell["traffic"])
+    kind = reg.kind(harness.kind_name(cfg))
+    dev = torch.device(DEV)
+    inputs, _ = kind.inputs(cfg, SEED, dev)
+    pool = kind.query_pool(cfg, traffic, SEED, dev)
+    system = reg.system(cfg["index"]).System(cfg, inputs, traffic, dev)
+    del inputs
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    b = traffic["batch"]
+    batch = pool[0:b]
+    system.search(batch)                   # warm; sizes the record room
+    zero_launch_counts()
+    before = VM.vocab_match.counters()
+    seen = {}
+
+    def call():
+        seen["scores"], seen["ids"], _ = system.search(batch)
+    args = recorded_args("vocab_match", call)
+    launches = launch_counts()
+    after = VM.vocab_match.counters()
+    want = ("vocab_coarse", "vocab_descend", "vocab_score", "vocab_match")
+    assert all(launches[k] == 1 for k in want), launches
+    assert not any(v for k, v in launches.items() if k not in want), launches
+    ids = np.asarray(seen["ids"])
+    assert ids.shape == (b, traffic["k"]), ids.shape
+    assert ids.min() >= 0 and ids.max() < cfg["n_images"], "ids"
+    assert (ids[:, 0] == np.arange(b)).all(), "a query's best is not itself"
+    cmp = twin_check("vocab_match", args)
+    assert cmp["records"] == after["matches"] - before["matches"], cmp
+    r = share(cuda_ms(lambda: VM.vocab_match(*args), 20),
+              match_bound(args, cmp["records"]))
+    r.update(launches=launches["vocab_match"], cmp=cmp,
+             plain_ms=cuda_ms(lambda: VM.vocab_match_plain(*args), 3),
+             pairs=after["pairs"] - before["pairs"],
+             features=int((args[0] >= 0).sum()), build_s=build_s)
+    print(f"verified query_batch at the cell {VERIFY_CELL} (index with "
+          f"frames built in {build_s:.1f} s): one batch of {b} query "
+          f"images, verify {cfg['verify']}, k {traffic['k']}; launches "
+          f"{ {k: launches[k] for k in want} }, no other kernel; every "
+          f"query's best is itself. vocab_match: {r['features']} features "
+          f"walked {r['pairs']} pairs, {cmp['records']} records, the same "
+          f"as the twin's once sorted; {r['entries']} distinct posting "
+          f"entries, {r['candidate_entries']} of them on a candidate; "
+          f"kernel {r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms; bound "
+          f"{r['bound_ms']:.4f} ms (bytes: {r['bytes'] / 1e6:.1f} MB), "
+          f"{r['bound_share']:.1%} of it {stamp}")
     del system, pool, args
     gc.collect()
     torch.cuda.empty_cache()
@@ -5066,6 +5173,7 @@ def main() -> int:
     sv = run_serving(idx, q_dev, gt, ids_ref, base_dev, stamp)
     vb = run_vocab(stamp)
     vc = run_vocab_cell(stamp)
+    vm = run_verified_cell(stamp)
     feat = run_features(stamp)
     match = run_matching(stamp)
     recon = run_reconstruction(stamp, match)
@@ -5231,14 +5339,22 @@ def main() -> int:
               near_rows=vc["coarse"]["cmp"]["near_rows"],
               launches_by_path={"vocab": vb["launches"]["vocab_coarse"],
                                 "cell": vc["coarse"]["launches"]},
-              by_path={"cell": path(vc["coarse"])})]
+              by_path={"cell": path(vc["coarse"])}),
+        entry("vocab_match", MATCH_SRC,
+              "none: cvt_tpu verifies candidates on padded per-image entry "
+              "tables in jnp (_verify_candidates in "
+              "cvt_tpu/index/vocab_he.py)",
+              vm["launches"], vm["cmp"]["max_abs_err"], vm["ms"],
+              vm["plain_ms"], vm, records=vm["cmp"]["records"],
+              pairs=vm["pairs"], launches_by_path={"cell": vm["launches"]},
+              by_path={"verified_cell": path(vm)})]
 
     # step 27 last, with every tensor of steps 1-26 dropped, so that the
     # bench's process has the card to itself
     del (rand_dec, rand_cached, rand_norm, idx, q_dev, base_dev, gt,
          ids_ref, dec_args, cached_args, ivf_idx, ivf_by_p, ivf_args, res,
-         iv, rs, rescore_cmp, sq, sv, vb, vc, feat, match, recon, apps, arc,
-         em, prof, mp, bp, ap)
+         iv, rs, rescore_cmp, sq, sv, vb, vc, vm, feat, match, recon, apps,
+         arc, em, prof, mp, bp, ap)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"before step 27 this process holds "

@@ -30,6 +30,12 @@ What differs from `cvt_tpu`:
     rounded once as well. Against `cvt_tpu`'s float32 sums in XLA's
     order, scores agree to a tolerance and ids where neighbouring scores
     are further apart;
+  * the ragged `query_batch` verifies its candidates without padded
+    tables: their matches come from the inverted file
+    (`ops/kernels/vocab_match.py`), the 1-to-1 rule runs on the sorted
+    records and vote-and-verify on one flat match list, its affine fits
+    solved in float64 (`match/vote_verify.py`); the padded form keeps
+    `cvt_tpu`'s dense tensors and float32 fits;
   * `train` draws its vocabulary seeds and its HE projection from a CPU
     `torch.Generator`, so a trained index differs from `cvt_tpu`'s for the
     same seed; the host-side layout (medians, buckets, tail, idf,
@@ -45,13 +51,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cvt_tpu_torch.match.vote_verify import vote_and_verify
+from cvt_tpu_torch.match.vote_verify import (vote_and_verify,
+                                             vote_and_verify_segmented)
 from cvt_tpu_torch.ops.kmeans import (hierarchical_assign,
                                       hierarchical_kmeans, integer_tree,
                                       kmeans, kmeans_assign,
                                       kmeans_assign_blocked)
 from cvt_tpu_torch.ops.bits import (_hamming, _pack_bits, _popcount,  # noqa: F401
                                     sigs_from_u32, sigs_to_u32)
+from cvt_tpu_torch.ops.kernels.vocab_match import vocab_match
 from cvt_tpu_torch.ops.kernels.vocab_score import vocab_score
 from cvt_tpu_torch.ops.topk import top_k_largest
 from cvt_tpu_torch.utils.device import resolve_device
@@ -163,16 +171,15 @@ def _self_similarity_groups(img, sig, start, size, word, idf,
     return out.float()
 
 
-def _verify_candidates(q_words, q_sigs, q_valid, q_geom, c_words, c_sigs,
-                       c_valid, c_geom, idf, image_extent: float):
-    """Spatially verify queries against C candidate images each.
-
-    q_*: [..., Kq(, 4)] query features; c_*: [..., C, Ki(, 4)] candidate
-    entries (padded). Word equality + Hamming <= 24 matching, weight =
-    exp(-h^2/s^2) * idf^2; each query feature takes its best db feature
-    (first maximum), each db feature keeps only its best claimant (the
-    lowest query index among equal weights); then vote_and_verify.
-    Returns [..., C] verification scores (effective inlier counts)."""
+def _candidate_matches(q_words, q_sigs, q_valid, c_words, c_sigs,
+                       c_valid, idf):
+    """The padded form's matches of queries against C candidate images
+    each: q_* [..., Kq] query features, c_* [..., C, Ki] candidate entries
+    (padded). Word equality + Hamming <= 24, weight = exp(-h^2/s^2) *
+    idf^2; each query feature takes its best db feature (first maximum),
+    each db feature keeps only its best claimant (the lowest query index
+    among equal weights). -> (best_j [..., C, Kq], each query feature's
+    db feature; keep [..., C, Kq], the kept matches)."""
     qw = q_words[..., None, :, None]                      # [..., 1, Kq, 1]
     same = qw == c_words[..., :, None, :]                 # [..., C, Kq, Ki]
     h = _hamming(q_sigs[..., None, :, None], c_sigs[..., :, None, :])
@@ -194,11 +201,59 @@ def _verify_candidates(q_words, q_sigs, q_valid, q_geom, c_words, c_sigs,
     first = torch.full(zeros.shape, 2 ** 30, dtype=torch.int32,
                        device=wm.device).scatter_reduce(
         -1, best_j, torch.where(keep, qi, 2 ** 30), "amin")
-    keep = keep & (torch.gather(first, -1, best_j) == qi)
+    return best_j, keep & (torch.gather(first, -1, best_j) == qi)
+
+
+def _verify_candidates(q_words, q_sigs, q_valid, q_geom, c_words, c_sigs,
+                       c_valid, c_geom, idf, image_extent: float):
+    """Spatially verify queries against C candidate images each.
+
+    q_*: [..., Kq(, 4)] query features; c_*: [..., C, Ki(, 4)] candidate
+    entries (padded). The matches of `_candidate_matches`, then
+    vote_and_verify. Returns [..., C] verification scores (effective
+    inlier counts)."""
+    best_j, keep = _candidate_matches(q_words, q_sigs, q_valid, c_words,
+                                      c_sigs, c_valid, idf)
     g2 = torch.gather(c_geom, -2, best_j[..., None].expand(
         best_j.shape + (4,)))                             # [..., C, Kq, 4]
     g1 = q_geom[..., None, :, :].expand(g2.shape)
     return vote_and_verify(g1, g2, keep, image_extent=image_extent).score
+
+
+def _runs(srt: torch.Tensor) -> torch.Tensor:
+    """The run number of each element of a sorted key [M]."""
+    new = torch.ones_like(srt, dtype=torch.bool)
+    new[1:] = srt[1:] != srt[:-1]
+    return torch.cumsum(new, 0) - 1
+
+
+def _one_to_one(rec: torch.Tensor, n_feat: int, n_db: int):
+    """`_verify_candidates`' 1-to-1 rule on match records [M, 4] int32
+    (pair, query feature, database feature, Hamming distance h) in any
+    order, query features < n_feat, database features < n_db -> (pair,
+    query feature, database feature) int64 of the kept matches, in (pair,
+    query feature) order. Each query feature of a pair takes its best
+    database feature, the lowest h and then the first; each database
+    feature keeps its best claimant, the lowest h and then the lowest
+    query feature. The candidates of one query feature share its word and
+    so its idf: the padded form's higher weight exp(-h^2/sigma^2) idf^2 is
+    the lower h, and its equal weights the equal h. Minima, so the
+    records' order does not move the result."""
+    big = torch.iinfo(torch.int64).max
+    r = rec.long()
+    key, order = torch.sort(r[:, 0] * n_feat + r[:, 1])
+    pair, qf, dbf, h = r[order].unbind(1)
+    grp = _runs(key)
+    own = (h << 31) | dbf
+    chosen = own == torch.full_like(own, big).scatter_reduce(
+        0, grp, own, "amin")[grp]
+    key2, order2 = torch.sort(torch.where(chosen, pair * n_db + dbf, big))
+    grp2 = torch.empty_like(grp)
+    grp2[order2] = _runs(key2)
+    claim = torch.where(chosen, (h << 31) | qf, big)
+    keep = chosen & (claim == torch.full_like(claim, big).scatter_reduce(
+        0, grp2, claim, "amin")[grp2])
+    return pair[keep], qf[keep], dbf[keep]
 
 
 class VocabHEIndex:
@@ -228,6 +283,9 @@ class VocabHEIndex:
         self.he_thresh: torch.Tensor | None = None   # [W, 64]
         self._entries: list = []        # staged (img, words, sigs, geom)
         self._names: list = []
+        self._with_geometry = False     # some image was given its frames
+        self._csr_feat = self._frames = None
+        self._match_cap = 1 << 20       # records `vocab_match` makes room for
         self._prepared = False
 
     @staticmethod
@@ -361,19 +419,19 @@ class VocabHEIndex:
         (inverted_file_entry.h:47-109 stores the same 16-byte geometry).
         """
         (img_id,) = self.add_images(descriptors, [len(descriptors)],
-                                    [name] if name else None)
-        if geometries is not None:
-            _, w, s, _ = self._entries[-1]
-            self._entries[-1] = (img_id, w, s, np.asarray(
-                geometries, np.float32).reshape(len(w), 4))
+                                    [name] if name else None, geometries)
         return img_id
 
-    def add_images(self, descriptors, counts, names=None) -> list[int]:
+    def add_images(self, descriptors, counts, names=None,
+                   geometries=None) -> list[int]:
         """Stage many images at once (call prepare() after): descriptors
         [sum(counts), D], uint8 or float, the images' rows one after
         another, numpy or a tensor (on the card: encoded where it lies);
-        counts [n] rows per image; names [n] (default img_<id>). One
-        encode pass, `_ADD_ROWS` rows a step. Returns the images' ids."""
+        counts [n] rows per image; names [n] (default img_<id>);
+        geometries, optional, [sum(counts), 4] the rows' (x, y, scale,
+        orientation) frames, which spatial verification reads (zeros
+        where none are given). One encode pass, `_ADD_ROWS` rows a step.
+        Returns the images' ids."""
         if self._names and not self._entries:
             # a load()ed index keeps only its baked bucket layout; new
             # stagings would orphan every loaded entry on re-prepare
@@ -393,7 +451,12 @@ class VocabHEIndex:
             w = self._assign(x, rows)
             words[lo:lo + len(x)] = w.cpu().numpy()
             sigs[lo:lo + len(x)] = self._sign(x, w).cpu().numpy()
-        geom = np.zeros((total, 4), np.float32)
+        if geometries is None:
+            geom = np.zeros((total, 4), np.float32)
+        else:
+            geom = torch.as_tensor(geometries, dtype=torch.float32).reshape(
+                total, 4).cpu().numpy()
+            self._with_geometry = True
         ids = []
         ends = np.cumsum(counts)
         for j, (a, b) in enumerate(zip(ends - counts, ends)):
@@ -497,9 +560,18 @@ class VocabHEIndex:
                          t_burst=t_burst, e_words=e_words, e_sigs=e_sigs,
                          e_geom=e_geom, e_valid=e_valid, idf=idf)
         # the entries sorted by (word, image) are the lists in CSR form:
-        # each word's bucket entries, then its tail entries, in this order
+        # each word's bucket entries, then its tail entries, in this order;
+        # with frames, also each entry's row in the flat feature order
+        # (`order`) and that order's frame table, for the ragged
+        # verification
+        feat = frames = None
+        if self._with_geometry:
+            feat = torch.from_numpy(order.astype(np.int32))
+            frames = torch.from_numpy(np.concatenate(
+                [g for _, _, _, g in self._entries]))
         self._set_lists(*(torch.from_numpy(a) for a in (starts, is_, ss,
-                                                        burst)))
+                                                        burst)),
+                        feat=feat, frames=frames)
 
         # self-similarity from each image's own entries
         # (inverted_index.h:238-288): the pairs of each (word, image) group
@@ -540,15 +612,22 @@ class VocabHEIndex:
                                     (self._b_sig, self._t_sig),
                                     (self._b_burst, self._t_burst))))
 
-    def _set_lists(self, off, img, sig, burst) -> None:
+    def _set_lists(self, off, img, sig, burst, feat=None,
+                   frames=None) -> None:
         """The inverted file that the scoring pass reads (cvt's per-word
         lists, inverted_file.h), to the index's device: word offsets
         `_csr_off` [W+1] int64 and, per entry sorted by word, its image
         `_csr_img` int32, signature `_csr_sig` int64 and burstiness
         `_csr_burst` float32; and the Hamming weights `_wtab` [25],
-        exp(-h^2/sigma^2) for h = 0..24."""
+        exp(-h^2/sigma^2) for h = 0..24. With frames, as cvt's entries
+        carry `feature_idx` and a geometry (inverted_file_entry.h:47-109):
+        each entry's database feature `_csr_feat` int32, its row in the
+        flat frame table `_frames` [N, 4] float32; else both None."""
         self._csr_off, self._csr_img, self._csr_sig, self._csr_burst = (
             t.contiguous().to(self.device) for t in (off, img, sig, burst))
+        self._csr_feat, self._frames = (
+            None if t is None else t.contiguous().to(self.device)
+            for t in (feat, frames))
         self._wtab = _he_weight(torch.arange(HE_MAX_DIST + 1,
                                              device=self.device))
 
@@ -603,6 +682,41 @@ class VocabHEIndex:
                 self._e_geom[ci], self._idf, image_extent))
         return norm.scatter_add(-1, cand, torch.cat(parts))
 
+    def _verified_flat(self, norm, f_word, f_sig, f_query, geometries,
+                       verify: int, image_extent: float):
+        """`_verified` of a ragged batch: norm [Q, n_images] with each
+        query's top-`verify` candidates' spatial verification scores
+        added; the batch's query features flat (f_word int32, f_sig,
+        f_query int32 as `vocab_score` takes them), geometries [F, 4]
+        their frames. The candidates' matches come from the inverted file
+        (`vocab_match`), the 1-to-1 rule and vote-and-verify run on the
+        one flat list of them (visual_index.h:376-501)."""
+        q, n = norm.shape
+        c = min(verify, n)
+        dev = norm.device
+        with span("vocab.verify"):
+            geom = self._as(geometries).reshape(-1, 4)
+            _, cand = top_k_largest(norm, c)                   # [Q, C]
+            with span("vocab.match"):
+                table = torch.full((q, n), -1, dtype=torch.int32,
+                                   device=dev)
+                table.scatter_(1, cand, torch.arange(
+                    q * c, dtype=torch.int32, device=dev).reshape(q, c))
+                rec = vocab_match(f_word, f_sig, f_query, self._csr_off,
+                                  self._csr_img, self._csr_sig,
+                                  self._csr_feat, table, HE_MAX_DIST,
+                                  self._match_cap)
+                # room for a quarter more than the most a batch has made
+                self._match_cap = max(self._match_cap,
+                                      rec.shape[0] + rec.shape[0] // 4)
+                pair, qf, dbf = _one_to_one(rec, f_word.shape[0],
+                                            self._frames.shape[0])
+            with span("vocab.vote"):
+                eff = vote_and_verify_segmented(
+                    geom[qf], self._frames[dbf], pair, q * c,
+                    image_extent=image_extent).score
+            return norm.scatter_add(-1, cand, eff.reshape(q, c))
+
     def query(self, descriptors, *, topk: int = 10, valid=None,
               geometries=None, verify: int = 0,
               image_extent: float = 1024.0):
@@ -648,14 +762,21 @@ class VocabHEIndex:
             rows are encoded.
         One descriptor -> word assignment pass covers every query image
         and one pass of the inverted file (`vocab_score`) scores the whole
-        batch. verify > 0 (padded form only) re-ranks each query's
-        top-`verify` candidates spatially (requires `geometries` [Q, Kq,
-        4]), `verify_chunk` queries at a time to bound the [chunk, C, Kq,
-        Ki] match tensors."""
-        if counts is not None and verify > 0:
-            raise ValueError("verify>0 takes the padded form")
+        batch. verify > 0 re-ranks each query's top-`verify` candidates
+        spatially (requires `geometries`: [Q, Kq, 4] padded, [sum(counts),
+        4] ragged). The padded form verifies `verify_chunk` queries at a
+        time on the padded entry tables ([chunk, C, Kq, Ki] match
+        tensors); the ragged form finds the candidates' matches in the
+        inverted file and verifies them as one flat list, and needs an
+        index built here with frames (`add_images(..., geometries=)`)."""
+        if verify > 0 and geometries is None:
+            raise ValueError("verify>0 requires query `geometries`")
         if not self._prepared:
             self.prepare()
+        if verify > 0 and counts is not None and self._csr_feat is None:
+            raise ValueError("verify>0 on the ragged form needs an index "
+                             "built with frames: add_images(..., "
+                             "geometries=)")
         with span("vocab.search"):
             with span("vocab.stage_in"):
                 x, rows = self._stage(descriptors)
@@ -682,9 +803,12 @@ class VocabHEIndex:
             f_word = (words if counts is not None
                       else torch.where(valid.reshape(-1), words, -1))
             norm = self._score_flat(f_word, sigs, f_query, q)
-            if verify > 0:
-                if geometries is None:
-                    raise ValueError("verify>0 requires query `geometries`")
+            if verify > 0 and counts is not None:
+                norm = self._verified_flat(
+                    norm, f_word.to(torch.int32).contiguous(), sigs,
+                    f_query.to(torch.int32).contiguous(), geometries,
+                    verify, image_extent)
+            elif verify > 0:
                 norm = self._verified(norm, words.reshape(q, kq),
                                       sigs.reshape(q, kq), valid,
                                       self._as(geometries).reshape(q, kq, 4),

@@ -167,3 +167,28 @@ def apply_similarity2d(m, pts) -> torch.Tensor:
     m = _f32(m)
     return (torch.einsum("...ij,...nj->...ni", m[..., :2], _f32(pts, m))
             + m[..., None, :, 2])
+
+
+def fit_affine_segmented(src, dst, seg, n_seg: int,
+                         weights) -> torch.Tensor:
+    """`fit_affine` of n_seg point sets held as one flat list: src/dst
+    [M, 2] (float32), seg [M] the set of each point, weights [M] ->
+    float32 [n_seg, 2, 3]. The normal equations' weighted sums are taken
+    and solved in float64, the model rounded to float32 once: the sums do
+    not depend on the points' order, and a set of one or two points, whose
+    system is singular but for the 1e-6 regularisation, gets its
+    regularised solution, where `fit_affine`'s float32 solve, which cannot
+    resolve 1e-6 beside sums of ~1e6, returns rounding noise. Wherever the
+    system is well determined the two agree to float32 rounding. A set
+    with no weight gives the zero model."""
+    src = _f32(src)
+    dst = _f32(dst, src)
+    seg = torch.as_tensor(seg, device=src.device).long()
+    x = torch.cat([src, torch.ones_like(src[:, :1])], -1).double()
+    xw = x * _f32(weights, src).double()[:, None]
+    sums = torch.zeros((n_seg, 3, 5), dtype=torch.float64,
+                       device=src.device).index_add_(
+        0, seg, xw[:, :, None] * torch.cat([x, dst.double()], -1)[:, None])
+    eye = torch.eye(3, dtype=torch.float64, device=src.device) * 1e-6
+    sol = torch.linalg.solve_ex(sums[..., :3] + eye, sums[..., 3:])[0]
+    return sol.mT.float()

@@ -40,7 +40,9 @@ class Kernel:
     `launch`, which calls the C symbol with the current stream last,
     raises on a CUDA error and counts one launch in `.launches`. Each of
     `counts` is a further counter, moved on every call that returns by
-    its function of the call's arguments."""
+    its function of the call's output and arguments, `n(out, *args)`: an
+    int, or a 0-d tensor summed where it lies, so that a count the card
+    holds costs no host sync until `counters()` reads it."""
 
     def __init__(self, body, name: str, *, symbol: str, args: str, twin,
                  compare, span: str | None = None, device: str | None = None,
@@ -60,8 +62,9 @@ class Kernel:
             setattr(self, c, 0)
 
     def counters(self) -> dict:
-        """Every counter of the kernel and its value."""
-        return {c: getattr(self, c) for c in ("launches", *self.counts)}
+        """Every counter of the kernel and its value, an int."""
+        return {c: int(getattr(self, c)) for c in ("launches",
+                                                   *self.counts)}
 
     def __call__(self, *args, **kwargs):
         call = self._sig.bind(*args, **kwargs)
@@ -81,7 +84,7 @@ class Kernel:
             else:
                 raise ValueError(f"no {self.name} kernel for {dev}")
         for c, n in self.counts.items():
-            setattr(self, c, getattr(self, c) + n(*args))
+            setattr(self, c, getattr(self, c) + n(out, *args))
         return out
 
     def launch(self, *args) -> None:
@@ -105,12 +108,13 @@ def kernel(name: str, **declared):
 def wrappers() -> dict:
     """Each kernel's name and its wrapper."""
     from cvt_tpu_torch.ops.kernels import (adc_scan, ivf_scan, vocab_coarse,
-                                           vocab_descend, vocab_score)
+                                           vocab_descend, vocab_match,
+                                           vocab_score)
     return {k.name: k for k in (
         adc_scan.adc_segmin, adc_scan.adc_segmin_cached,
         ivf_scan.ivf_pages_segmin, ivf_scan.ivf_rescore,
         vocab_score.vocab_score, vocab_descend.vocab_descend,
-        vocab_coarse.vocab_coarse)}
+        vocab_coarse.vocab_coarse, vocab_match.vocab_match)}
 
 
 def launch_counts() -> dict:

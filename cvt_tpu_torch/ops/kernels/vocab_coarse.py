@@ -130,7 +130,7 @@ def _check(x, centres, probes: int) -> None:
 
 @kernel("vocab_coarse", symbol="cvt_vocab_coarse", args="pii ppii ppp",
         twin=vocab_coarse_plain, compare=compare_coarse_kernel,
-        check=_check, counts={"rows": lambda x, *a: x.shape[0]})
+        check=_check, counts={"rows": lambda _, x, *a: x.shape[0]})
 def vocab_coarse(x, centres, probes: int):
     """-> (dist [T, P] float32, cells [T, P] int64) (the module's
     contract).

@@ -112,7 +112,8 @@ def compare_descend_kernel(args) -> dict:
 
 @kernel("vocab_descend", symbol="cvt_vocab_descend", args="pii ppi ppi ppp",
         twin=vocab_descend_plain, compare=compare_descend_kernel,
-        check=_check, counts={"pairs": lambda _, order, *a: order.shape[0]})
+        check=_check,
+        counts={"pairs": lambda _, __, order, *a: order.shape[0]})
 def vocab_descend(rows, order, tiles, words, fsq, probes: int):
     """-> (dist [n] int32, sub [n] int32) (the module's contract).
 

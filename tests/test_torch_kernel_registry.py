@@ -29,7 +29,7 @@ from _ivf_rescore_inputs import positional, rescore_args
 K = importlib.import_module("cvt_tpu_torch.ops.kmeans")
 
 NAMES = ["adc_segmin", "adc_segmin_cached", "ivf_page", "ivf_rescore",
-         "vocab_score", "vocab_descend", "vocab_coarse"]
+         "vocab_score", "vocab_descend", "vocab_coarse", "vocab_match"]
 
 
 def _ints(g, lo, hi, shape, dtype):
@@ -92,10 +92,24 @@ def _vocab_coarse(g):
             torch.randn((20, 16), generator=g) * 10, 3)
 
 
+def _vocab_match(g):
+    n_words, n_entries, n_feat, n_images = 8, 40, 12, 5
+    e_word = _ints(g, 0, n_words, (n_entries,), torch.int64).sort().values
+    offsets = torch.searchsorted(e_word, torch.arange(n_words + 1))
+    sig = lambda n: _ints(g, 0, 16, (n,), torch.int64)   # few bits apart
+    cand = torch.full((3, n_images), -1, dtype=torch.int32)
+    cand[:, 1:4] = torch.arange(9, dtype=torch.int32).reshape(3, 3)
+    return (_ints(g, -1, n_words, (n_feat,), torch.int32), sig(n_feat),
+            _ints(g, 0, 3, (n_feat,), torch.int32), offsets,
+            _ints(g, 0, n_images, (n_entries,), torch.int32),
+            sig(n_entries), torch.randperm(n_entries, generator=g).int(),
+            cand, 2, 64)
+
+
 ARGS = {"adc_segmin": _adc_segmin, "adc_segmin_cached": _adc_segmin_cached,
         "ivf_page": _ivf_page, "ivf_rescore": _ivf_rescore,
         "vocab_score": _vocab_score, "vocab_descend": _vocab_descend,
-        "vocab_coarse": _vocab_coarse}
+        "vocab_coarse": _vocab_coarse, "vocab_match": _vocab_match}
 
 
 def _args(name):
@@ -171,7 +185,7 @@ def test_cpu_call_runs_the_twin_and_records_its_arguments(name,
         assert len(s) == len(x)
         assert all(a is b or (not torch.is_tensor(a) and a == b)
                    for a, b in zip(s, x))
-    moved = {c: before[c] + sum(n(*x) for x in want)
+    moved = {c: before[c] + int(sum(n(w.twin(*x), *x) for x in want))
              for c, n in w.counts.items()}
     assert w.counters() == dict(before, **moved)
 
