@@ -861,12 +861,14 @@ def phase_timing(idx, q_dev, dec_args, cached_args, reps: int) -> dict:
 
 def random_ivf_args(d: int, b: int, seed: int = SEED):
     """Seeded ivf_page arguments over 64 pages of 512 rows (seg 32) for a
-    batch of b queries: BIG pad rows and a whole page of them, BIG-masked
-    cip entries and padded query columns, a repeated fill page in sel."""
+    batch of b queries: BIG pad rows and a whole page of them, 256 cells in
+    cell order over the segments with dead segments and a page of them,
+    BIG-masked coarse terms, a cell masked for every query and padded query
+    columns, a repeated fill page in sel."""
     from cvt_tpu_torch.ops.kernels import ivf_scan as V
     g = torch.Generator().manual_seed(seed)
     nvcap, _ = V._ivf_pack_caps(32, d)
-    lp, spt, n_pages, s = 512, 16, 64, 48
+    lp, spt, n_pages, s, kc = 512, 16, 64, 48, 256
     bpad = -(-b // 128) * 128
     qs = torch.rand((1,), generator=g) + 0.5
     dec8_t = torch.randint(-127, 128, (d, n_pages * lp), generator=g,
@@ -874,15 +876,20 @@ def random_ivf_args(d: int, b: int, seed: int = SEED):
     nrm = torch.rand((n_pages * lp, 1), generator=g) * 0.9 * nvcap * qs
     nrm[torch.rand(nrm.shape, generator=g) < 0.1] = V.BIG
     nrm[5 * lp:6 * lp] = V.BIG
+    seg_cell = torch.randint(0, kc, (n_pages * spt,), generator=g,
+                             dtype=torch.int32).sort().values
+    seg_cell[torch.rand(seg_cell.shape, generator=g) < 0.1] = -1
+    seg_cell[7 * spt:8 * spt] = -1
     sel = torch.randperm(n_pages, generator=g)[:s].to(torch.int32)
     sel[-4:] = 0
-    cip = torch.rand((s * spt, bpad), generator=g) * 0.9 * 127 ** 2 * d * qs
-    cip[torch.rand(cip.shape, generator=g) < 0.3] = V.BIG
-    cip[-4 * spt:] = V.BIG
-    cip[:, b:] = V.BIG
+    cipc = torch.rand((kc, bpad), generator=g) * 0.9 * 127 ** 2 * d * qs
+    cipc[torch.rand(cipc.shape, generator=g) < 0.3] = V.BIG
+    cipc[::17] = V.BIG
+    cipc[:, b:] = V.BIG
     q2s = torch.randint(-127, 128, (bpad, d), generator=g, dtype=torch.int8)
     q2s[b:] = 0
-    return [x.to(DEV) for x in (q2s, qs, dec8_t, nrm, cip, sel)] + [lp, 32]
+    return [x.to(DEV) for x in (q2s, qs, dec8_t, nrm, cipc, seg_cell,
+                                sel)] + [lp, 32]
 
 
 def ivf_batches(idx, q_dev, fn):
@@ -5122,7 +5129,7 @@ def main() -> int:
     ivf_by_p = {p: main_path_ivf_args(ivf_idx, q_dev, p)
                 for p in IVF_NPROBES}
     ivf_args = ivf_by_p[IVF_REF_NPROBE]
-    assert ivf_args[8] is not None, "search_fast passed no n_live"
+    assert ivf_args[9] is not None, "search_fast passed no n_live"
     ivf_cmp = compare_ivf_kernel(ivf_args)
     print(f"kernel vs twin, IVF main path's arguments (nprobe "
           f"{IVF_REF_NPROBE}, B={IVF_B}, segpack {ivf_cmp['shape']}, "
@@ -5142,7 +5149,7 @@ def main() -> int:
     for p, args in ivf_by_p.items():
         ivf_bp[p] = dict(share(itm[f"ivf_page_{p}_ms"], ivf_bound(args)),
                          live_slots=live_slots(args),
-                         slots=args[5].shape[0])
+                         slots=args[6].shape[0])
         print_bound("ivf_page", f"the nprobe-{p} batch (B {IVF_B}, "
                     f"{ivf_bp[p]['live_slots']} live of "
                     f"{ivf_bp[p]['slots']} page slots)", ivf_bp[p], stamp)

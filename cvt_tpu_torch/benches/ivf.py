@@ -205,8 +205,8 @@ def ivf_lane(ivf: IVFADCIndex, nprobe: int, stack, queries,
     _, ids, drop = ivf.search_fast(
         qg, K, nprobe=nprobe, max_pages=page_budget(ivf, nprobe, len(qg)))
     return dict(t, **kern, qps=stack.shape[1] / t["ms"] * 1e3,
-                probed_pages=int(args[8]), live_slots=live_slots(args),
-                slots=args[5].shape[0], dropped_timed=dropped_timed,
+                probed_pages=int(args[9]), live_slots=live_slots(args),
+                slots=args[6].shape[0], dropped_timed=dropped_timed,
                 r10=recall10(ids, gt_ids), dropped=int(drop),
                 ids_in_range=ids_in_range(ids, ivf.ntotal))
 

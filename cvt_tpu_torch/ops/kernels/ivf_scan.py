@@ -11,10 +11,10 @@ selected pages:
 
 The residual term -2<q, d> is an int8 product against the folded queries,
 the norm ||c + d||^2 rides a per-row f32 column, and the coarse term
--2<q, c> is constant per (segment, query) and enters as a per-segment
-correction `cip`. Segments of cells a query did not probe carry a marker
-that ranks them below every real candidate, so the union scan returns the
-probed lists' top-k and not the batch union's.
+-2<q, c> is constant per (cell, query): one table `cipc` [Kc, Bpad] that
+the kernel reads through each segment's cell `seg_cell`. Cells a query did
+not probe carry a marker that ranks them below every real candidate, so
+the union scan returns the probed lists' top-k and not the batch union's.
 
 Phase 1 is the hand-written CUDA kernel `ivf_page_kernel`
 (`csrc/ivf_scan.cu`, int8 tensor cores) for tensors on the card and its
@@ -87,25 +87,29 @@ def _clip_i32(x: torch.Tensor, qs, mk: float) -> torch.Tensor:
     return torch.clamp(torch.round(x / qs), 0.0, mk).to(torch.int32)
 
 
-def ivf_pages_segmin_plain(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int,
-                           seg: int, n_live=None):
+def ivf_pages_segmin_plain(q2s, qs, dec8_t, nrm_col, cipc, seg_cell, sel,
+                           lp: int, seg: int, n_live=None):
     """Plain PyTorch twin of the `ivf_page` kernel (same arguments and
     output); runs on any device.
 
     q2s [Bpad, D] int8 folded queries, qs their float32 scale (one
     element); dec8_t [D, N'] int8 cell-sorted residual cache; nrm_col
-    [N', 1] f32 (BIG on pad rows); cip [S*spt, Bpad] f32 per-segment
-    coarse terms (BIG = masked); sel [S] int32 selected page ids; n_live
-    [1] int32, the live slots (None: all S). Returns segpack [S*spt, Bpad]
-    int32: for live slot i and segment s of page sel[i], min over the
-    segment's rows of (ip + norm_i + cip_i) * seg + row % seg; INT32_MAX
-    for every segment of a slot past n_live or of a page id out of range.
+    [N', 1] f32 (BIG on pad rows); cipc [Kc, Bpad] f32 per-cell coarse
+    terms (BIG = masked); seg_cell [N'/seg] int32 owning cell per segment
+    (-1 = dead); sel [S] int32 selected page ids; n_live [1] int32, the
+    live slots (None: all S). Segment g's coarse term is cipc[seg_cell[g]],
+    BIG where that cell lies outside [0, Kc). Returns segpack [S*spt,
+    Bpad] int32: for live slot i and segment s of page sel[i], min over
+    the segment's rows of (ip + norm_i + cip_i) * seg + row % seg;
+    INT32_MAX for every segment of a slot past n_live or of a page id out
+    of range.
 
     The scores are float32 products of int8 operands: every partial sum is
     an integer below 127^2 * D < 2^24, so the int32 cast is exact."""
     bpad, d = q2s.shape
     s = sel.shape[0]
     spt = lp // seg
+    kc = cipc.shape[0]
     _, marker = _ivf_pack_caps(seg, d)
     mk = _marker_f32(marker)
     n_pages = dec8_t.shape[1] // lp
@@ -113,7 +117,8 @@ def ivf_pages_segmin_plain(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int,
     nrm = nrm_col[:, 0].view(n_pages, lp)
     qf = q2s.float().T                                           # [D, Bpad]
     lane = torch.arange(lp, device=q2s.device, dtype=torch.int32) % seg
-    cip_sh = _clip_i32(cip, qs, mk) * seg                        # [S*spt, Bpad]
+    # each cell's clipped term, and a last row of BIG for dead segments
+    cip_sh = _clip_i32(F.pad(cipc, (0, 0, 0, 1), value=BIG), qs, mk) * seg
     out = torch.empty((s * spt, bpad), dtype=torch.int32, device=q2s.device)
     ok = (sel >= 0) & (sel < n_pages)
     if n_live is not None:
@@ -126,8 +131,11 @@ def ivf_pages_segmin_plain(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int,
                           qf).to(torch.int32)                    # [c, lp, Bpad]
         base = _clip_i32(nrm[pg], qs, mk) * seg + lane           # [c, lp]
         mins = (ip * seg + base[:, :, None]).view(c, spt, seg, bpad).amin(2)
-        rows = slice(p0 * spt, (p0 + c) * spt)
-        out[rows] = mins.reshape(c * spt, bpad) + cip_sh[rows]
+        cells = seg_cell[(pg[:, None] * spt + torch.arange(
+            spt, device=pg.device)).reshape(-1)].long()          # [c*spt]
+        cells = torch.where((cells >= 0) & (cells < kc), cells, kc)
+        out[p0 * spt:(p0 + c) * spt] = (mins.reshape(c * spt, bpad)
+                                        + cip_sh[cells])
     return torch.where(ok.repeat_interleave(spt)[:, None], out, I32_MAX)
 
 
@@ -141,16 +149,29 @@ def _page_smem_bytes(d: int, nst: int) -> int:
     return 1024 + 128 * 128 * panels + nst * 64 * 128 * panels + 128 * 4
 
 
-def _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int, seg: int,
-                  n_live=None) -> None:
+def _largest_cell(seg_cell: torch.Tensor) -> int:
+    """seg_cell's largest cell id, read on the host once for each state
+    of the tensor (kept on the tensor with its version counter): an
+    index's table does not change between its searches, so only its first
+    search waits for the card here."""
+    seen = getattr(seg_cell, "_largest_cell", None)
+    if seen is None or seen[0] != seg_cell._version:
+        seen = (seg_cell._version,
+                int(seg_cell.max()) if seg_cell.numel() else -1)
+        seg_cell._largest_cell = seen
+    return seen[1]
+
+
+def _check_launch(q2s, qs, dec8_t, nrm_col, cipc, seg_cell, sel, lp: int,
+                  seg: int, n_live=None) -> None:
     """Validate what the kernel takes before its pointers are passed."""
     bpad, d = q2s.shape
     dev = q2s.device
-    tensors = dict(q2s=q2s, qs=qs, dec8_t=dec8_t, nrm_col=nrm_col, cip=cip,
-                   sel=sel)
+    tensors = dict(q2s=q2s, qs=qs, dec8_t=dec8_t, nrm_col=nrm_col,
+                   cipc=cipc, seg_cell=seg_cell, sel=sel)
     dtypes = dict(q2s=torch.int8, qs=torch.float32, dec8_t=torch.int8,
-                  nrm_col=torch.float32, cip=torch.float32, sel=torch.int32,
-                  n_live=torch.int32)
+                  nrm_col=torch.float32, cipc=torch.float32,
+                  seg_cell=torch.int32, sel=torch.int32, n_live=torch.int32)
     if n_live is not None:
         tensors["n_live"] = n_live
     for name, t in tensors.items():
@@ -177,9 +198,18 @@ def _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int, seg: int,
     n_rows = dec8_t.shape[1]
     if dec8_t.shape[0] != d or n_rows % lp or nrm_col.shape != (n_rows, 1):
         raise ValueError("dec8_t/nrm_col shapes disagree with q2s and lp")
-    if sel.dim() != 1 or cip.shape != (sel.shape[0] * (lp // seg), bpad):
-        raise ValueError(f"cip must be [S*{lp // seg}, {bpad}] for "
-                         f"sel [S]; got {tuple(cip.shape)}")
+    if sel.dim() != 1:
+        raise ValueError(f"sel must be [S]; got {tuple(sel.shape)}")
+    if cipc.dim() != 2 or cipc.shape[0] == 0 or cipc.shape[1] != bpad:
+        raise ValueError(f"cipc must be [Kc >= 1, {bpad}]; got "
+                         f"{tuple(cipc.shape)}")
+    if seg_cell.shape != (n_rows // seg,):
+        raise ValueError(f"seg_cell must be [{n_rows // seg}] (N'/seg); got "
+                         f"{tuple(seg_cell.shape)}")
+    largest = _largest_cell(seg_cell)
+    if largest >= cipc.shape[0]:
+        raise ValueError(f"seg_cell names cell {largest}, past cipc's "
+                         f"{cipc.shape[0]} rows")
 
 
 def compare_ivf_kernel(args) -> dict:
@@ -194,18 +224,19 @@ def compare_ivf_kernel(args) -> dict:
     return {"max_abs_err": err, "shape": list(got.shape)}
 
 
-@kernel("ivf_page", symbol="cvt_ivf_pages_segmin", args="ppppppp iiiiiii pp",
-        twin=ivf_pages_segmin_plain, compare=compare_ivf_kernel,
-        span="kernel.ivf_page")
-def ivf_pages_segmin(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int, seg: int,
-                     n_live=None):
+@kernel("ivf_page", symbol="cvt_ivf_pages_segmin",
+        args="pppppppp iiiiiiii pp", twin=ivf_pages_segmin_plain,
+        compare=compare_ivf_kernel, span="kernel.ivf_page")
+def ivf_pages_segmin(q2s, qs, dec8_t, nrm_col, cipc, seg_cell, sel, lp: int,
+                     seg: int, n_live=None):
     """Phase 1 over the selected pages -> segpack [S*spt, Bpad] int32.
 
     Arguments as `ivf_pages_segmin_plain`. Tensors on the CPU run the
     twin; tensors on the card launch `ivf_page_kernel`, which reads n_live
     on the device, so nothing waits on the host; any other device raises.
     Traced, the call is one `kernel.ivf_page` span."""
-    _check_launch(q2s, qs, dec8_t, nrm_col, cip, sel, lp, seg, n_live)
+    _check_launch(q2s, qs, dec8_t, nrm_col, cipc, seg_cell, sel, lp, seg,
+                  n_live)
     bpad, d = q2s.shape
     _, marker = _ivf_pack_caps(seg, d)
     s = sel.shape[0]
@@ -213,8 +244,9 @@ def ivf_pages_segmin(q2s, qs, dec8_t, nrm_col, cip, sel, lp: int, seg: int,
                           device=q2s.device)
     ivf_pages_segmin.launch(
         sel.data_ptr(), None if n_live is None else n_live.data_ptr(),
-        qs.data_ptr(), dec8_t.data_ptr(), nrm_col.data_ptr(), cip.data_ptr(),
-        q2s.data_ptr(), s, dec8_t.shape[1], d, bpad, lp, seg, marker,
+        qs.data_ptr(), dec8_t.data_ptr(), nrm_col.data_ptr(),
+        cipc.data_ptr(), seg_cell.data_ptr(), q2s.data_ptr(), s,
+        dec8_t.shape[1], d, bpad, lp, seg, marker, cipc.shape[0],
         segpack.data_ptr())
     return segpack
 
@@ -531,6 +563,13 @@ def _select_pages(page_probed: torch.Tensor, s_max: int):
     return sel, live, n_live
 
 
+def _cell_mask(cells: torch.Tensor, kc: int) -> torch.Tensor:
+    """[Kc] bool: the cells that `cells` names (-1 names none)."""
+    mask = torch.zeros(kc + 1, dtype=torch.bool, device=cells.device)
+    mask[torch.where(cells >= 0, cells, kc).long()] = True
+    return mask[:kc]
+
+
 def ivf_union_search(q, centroids, dec8_t, dec16_rm, srow16, nrm_col,
                      seg_cell, rowids, srow, dsq_min: float, nprobe: int,
                      k: int, max_pages: int, lp: int = 512, seg: int = 32,
@@ -548,7 +587,14 @@ def ivf_union_search(q, centroids, dec8_t, dec16_rm, srow16, nrm_col,
 
     exact_probe=True masks each query to its own nprobe lists (reference
     semantics, IVFOPQ.cpp:237-309); False scans the batch union. Float32
-    throughout: keep TF32 off, a changed cip moves round(cip/qs)."""
+    throughout: keep TF32 off, a changed coarse term moves round(cip/qs).
+
+    The coarse terms are one row per cell, cipc [Kc, Bpad]: -2 coarse_ip
+    less the query's least term c0 over the cells of the selected pages
+    (fill slots included), BIG where the query did not probe the cell
+    (exact_probe) and in the padded columns. The kernel reads a segment's
+    row through seg_cell. qs is clamped by the largest unmasked term over
+    the cells of the live slots only."""
     b, d = q.shape
     n_rows = dec8_t.shape[1]
     n_pages = n_rows // lp
@@ -572,36 +618,45 @@ def ivf_union_search(q, centroids, dec8_t, dec16_rm, srow16, nrm_col,
         sel, live, n_live = _select_pages(page_probed, s_max)
         n_dropped = torch.clamp_min(n_live[0] - s_max, 0)
 
-    # ---- per-segment coarse correction rows [S*spt, B] -------------------
+    # ---- per-cell coarse terms [Kc, Bpad] ---------------------------------
     with span("ivf.coarse_terms"):
         sel_segs = sel[:, None].long() * spt + torch.arange(spt, device=dev)
         cells = seg_cell[sel_segs.reshape(-1)]                   # [S*spt]
-        cells_c = cells.clamp(0, kc - 1).long()
-        cip = -2.0 * (q @ centroids[cells_c].T).T                # [S*spt, B]
-        c0 = torch.amin(torch.where(cells[:, None] >= 0, cip, BIG), dim=0)
-        cipz = cip - c0[None, :]
+        in_sel = _cell_mask(cells, kc)
+        in_live = _cell_mask(torch.where(live.repeat_interleave(spt), cells,
+                                         -1), kc)
+        cip = -2.0 * coarse_ip                                   # [B, Kc]
+        c0 = torch.amin(torch.where(in_sel, cip, BIG), dim=1)    # [B]
+        # the kernel's block spans the padded batch: padded query columns
+        # are masked and dropped by segpack.T[:b]
+        bpad = -(-b // 128) * 128
+        cipc = torch.empty((kc, bpad), dtype=torch.float32, device=dev)
+        cipc[:, b:] = BIG
+        cipz = cipc[:, :b].T                                     # [B, Kc] view
+        torch.sub(cip, c0[:, None], out=cipz)
         if exact_probe:
-            hit = probed_bk[:, cells_c].T & (cells >= 0)[:, None]
-            cipz = torch.where(hit, cipz, BIG)
-        dead = (cells < 0) | ~live.repeat_interleave(spt)
-        cipz = torch.where(dead[:, None], BIG, cipz)
+            cipz.masked_fill_(~probed_bk, BIG)
 
     # ---- query fold with marker-safe qs clamps ---------------------------
     with span("ivf.fold"):
         # the clamps reach _fold_queries before q2s is quantized, so ip,
         # norm_i and cip_i share one unit
         max_nrm = torch.amax(torch.where(nrm_col < BIG / 2, nrm_col, 0.0))
-        max_cip = torch.amax(torch.where(cipz < BIG / 2, cipz, 0.0))
+        # the largest unmasked term of a live slot's cell; with exact_probe
+        # a query's unmasked terms are those of its own probes
+        if exact_probe:
+            terms = torch.gather(cipz, 1, probes)                # [B, nprobe]
+            ok = in_live[probes]
+        else:
+            terms, ok = cipc, in_live[:, None]
+        max_cip = torch.amax(torch.where(ok & (terms < BIG / 2), terms, 0.0))
         qs_min = torch.maximum(max_nrm / nvcap, max_cip / (127 * 127 * d))
         q2s, qs = _fold_queries(q, srow, qs_min, 1)
-        # the kernel's block spans the padded batch: padded query columns
-        # are masked and dropped by segpack.T[:b]
-        cip_pad = F.pad(cipz, (0, q2s.shape[0] - b), value=BIG).contiguous()
     # the fill slots are skipped: their keys (INT32_MAX) rank after every
     # live segment's, valid or masked, so the k+slack winners below are
     # those of a scan of every slot
-    segpack = ivf_pages_segmin(q2s, qs.reshape(1), dec8_t, nrm_col, cip_pad,
-                               sel, lp, seg, n_live)
+    segpack = ivf_pages_segmin(q2s, qs.reshape(1), dec8_t, nrm_col, cipc,
+                               seg_cell, sel, lp, seg, n_live)
 
     # ---- phase 2: exact f32 rescore of the winning segments --------------
     out_d, ids = ivf_rescore(segpack, n_live, sel, rowids, seg_cell, dec16_rm,

@@ -197,19 +197,23 @@ def adc_bound(args, cached: bool) -> dict:
 def live_slots(args) -> int:
     """The live page slots of an `ivf_page` call: its n_live argument
     (capped at sel's length), or every slot where it has none."""
-    n_slots = args[5].shape[0]
-    if len(args) < 9 or args[8] is None:
+    n_slots = args[6].shape[0]
+    if len(args) < 10 or args[9] is None:
         return n_slots
-    return min(int(args[8]), n_slots)
+    return min(int(args[9]), n_slots)
 
 
 def ivf_bound(args) -> dict:
     """Bound of one `ivf_page` call, counting the live page slots only:
-    their cache rows and norms, coarse terms and minima, plus the
-    queries. The kernel skips the fill slots past n_live."""
-    q2s, _, _, _, _, sel, lp, seg = args[:8]
+    their cache rows and norms, their segments' cells and minima, the rows
+    of the coarse-term table those cells name (at most one a live segment,
+    at most the table), plus the queries. The kernel skips the fill slots
+    past n_live."""
+    q2s, _, _, _, cipc, _, sel, lp, seg = args[:9]
     bpad, d = q2s.shape
     n_live = live_slots(args)
-    mins = n_live * (lp // seg) * bpad * 4
+    n_segs = n_live * (lp // seg)
+    terms = min(n_segs, cipc.shape[0]) * bpad * 4
     return bound(2.0 * n_live * lp * d * bpad,
-                 n_live * lp * (d + 4) + 2 * mins + nbytes(q2s, sel))
+                 n_live * lp * (d + 4) + n_segs * (bpad + 1) * 4 + terms
+                 + nbytes(q2s, sel))

@@ -389,7 +389,7 @@ def test_recorded_args_are_the_calls_own(ivf_carried):
     args = recorded_args("ivf_page", lambda: idx.search_fast(
         queries[:32], ivf.K, nprobe=8, max_pages=budget))
     assert V.ivf_pages_segmin.recorded is None
-    assert args[0].shape == (128, 128) and args[6:8] == (idx._pg_lp,
+    assert args[0].shape == (128, 128) and args[7:9] == (idx._pg_lp,
                                                          idx._pg_seg)
     torch.testing.assert_close(V.ivf_pages_segmin(*args),
                                V.ivf_pages_segmin_plain(*args), rtol=0,
@@ -482,8 +482,8 @@ def test_ivf_page_at_the_ivf_suite_shape(card_ivf):
     budget = ivf.page_budget(b["ivf"], 16, 256)
     args = recorded_args("ivf_page", lambda: b["ivf"].search_fast(
         q, ivf.K, nprobe=16, max_pages=budget))
-    assert args[5].shape[0] >= 128, args[5].shape     # page slots
-    assert 0 < int(args[8]) <= args[5].shape[0]
+    assert args[6].shape[0] >= 128, args[6].shape     # page slots
+    assert 0 < int(args[9]) <= args[6].shape[0]
     got = V.ivf_pages_segmin(*args)
     want = V.ivf_pages_segmin_plain(*args)
     torch.cuda.synchronize()

@@ -4,10 +4,12 @@ ivf_scan, the Pallas kernel run with interpret=True on the CPU.
 On the CPU the kernel wrapper runs its plain PyTorch twin, so these tests
 hold the twin (and everything around it) against the TPU kernel.
 Tolerances:
-  * integer stages bitwise: _ivf_pack_caps, segpack (the twin against the
-    Pallas kernel on the same q2s, qs, cache, norms, cip and sel; with a
-    live count n_live, its live slots against the Pallas kernel's and its
-    fill slots INT32_MAX), every array of build_page_layout;
+  * integer stages bitwise: _ivf_pack_caps, segpack (the twin on a
+    per-cell table cipc and seg_cell against the Pallas kernel on the same
+    q2s, qs, cache, norms and sel, and the [S*spt, B] cip that cvt_tpu's
+    kernel takes, expanded from cipc through seg_cell; with a live count
+    n_live, its live slots against the Pallas kernel's and its fill slots
+    INT32_MAX), every array of build_page_layout;
   * ivf_union_search: distances rtol 1e-5 (the coarse products and the
     rescore sum in another order), ids equal except at near-ties (another
     entry of the reference's row within 1e-4 relative of that distance, or
@@ -44,10 +46,15 @@ def assert_ids_match(d, i, jd, ji, rel=1e-4):
         assert gap.min() <= rel * max(abs(jd[r, c]), 1.0), (r, c)
 
 
+KC = 10
+
+
 def _page_inputs(d, b, seed):
     """Seeded arguments of the page scan over 6 pages: BIG pad rows, a
-    page of pad rows only, BIG-masked cip entries, a fully masked slot and
-    a repeated fill page in sel."""
+    page of pad rows only, KC cells in cell order over the segments, dead
+    segments and a page of them (page 1, a fully masked slot), BIG-masked
+    cipc entries and a cell masked for every query, and a repeated fill
+    page in sel."""
     rng = np.random.default_rng(seed)
     nvcap, marker = J._ivf_pack_caps(SEG, d)
     ipb = 127 * 127 * d
@@ -58,15 +65,25 @@ def _page_inputs(d, b, seed):
     nrm = rng.uniform(0, 0.9 * nvcap * qs, n_pages * LP).astype(np.float32)
     nrm[rng.random(nrm.shape) < 0.1] = J.BIG
     nrm[4 * LP:5 * LP] = J.BIG                        # a page of pad rows
+    seg_cell = np.sort(rng.integers(0, KC, n_pages * SPT)).astype(np.int32)
+    seg_cell[rng.random(seg_cell.shape) < 0.1] = -1   # dead segments
+    seg_cell[SPT:2 * SPT] = -1                        # a page of them
     sel = np.array([3, 4, 0, 5, 1, 0, 0], np.int32)   # fill slots: page 0
-    s = sel.shape[0]
-    cip = rng.uniform(0, 0.9 * ipb * qs, (s * SPT, bpad)).astype(np.float32)
-    cip[rng.random(cip.shape) < 0.3] = J.BIG
-    cip[-2 * SPT:] = J.BIG                            # masked fill slots
-    cip[:, b:] = J.BIG                                # padded query columns
+    cipc = rng.uniform(0, 0.9 * ipb * qs, (KC, bpad)).astype(np.float32)
+    cipc[rng.random(cipc.shape) < 0.3] = J.BIG
+    cipc[int(seg_cell[3 * SPT])] = J.BIG              # a cell no query probed
+    cipc[:, b:] = J.BIG                               # padded query columns
     q2s = rng.integers(-127, 128, (bpad, d)).astype(np.int8)
     q2s[b:] = 0
-    return q2s, qs, dec8_t, nrm[:, None], cip, sel
+    return q2s, qs, dec8_t, nrm[:, None], cipc, seg_cell, sel
+
+
+def _expand(cipc, seg_cell, sel):
+    """The [S*spt, Bpad] per-segment cip of cvt_tpu's kernel: each
+    selected segment's cell row of cipc, BIG for a dead segment."""
+    cells = seg_cell[(sel[:, None] * SPT + np.arange(SPT)).reshape(-1)]
+    return np.where(cells[:, None] >= 0, cipc[np.maximum(cells, 0)],
+                    np.float32(J.BIG)).astype(np.float32)
 
 
 def test_pack_caps_match_reference():
@@ -82,13 +99,16 @@ def test_pack_caps_match_reference():
 @pytest.mark.parametrize("d,b", [(64, 128), (64, 200), (128, 128),
                                  (128, 200)])
 def test_segmin_twin_matches_pallas_kernel(d, b):
-    q2s, qs, dec8_t, nrm_col, cip, sel = _page_inputs(d, b, seed=d + b)
+    q2s, qs, dec8_t, nrm_col, cipc, seg_cell, sel = _page_inputs(
+        d, b, seed=d + b)
+    cip = _expand(cipc, seg_cell, sel)
     want = np.asarray(J._ivf_pages_segmin(
         jnp.asarray(q2s), jnp.float32(qs), jnp.asarray(dec8_t),
         jnp.asarray(nrm_col), jnp.asarray(cip), jnp.asarray(sel), LP, SEG,
         True))
     got = T.ivf_pages_segmin(t(q2s), torch.tensor([qs]), t(dec8_t),
-                             t(nrm_col), t(cip), t(sel), LP, SEG).numpy()
+                             t(nrm_col), t(cipc), t(seg_cell), t(sel), LP,
+                             SEG).numpy()
     np.testing.assert_array_equal(got, want)
     # cvt_tpu hands its kernel cip [S*spt, B] unpadded: the real columns
     # agree with the padded call
@@ -114,18 +134,20 @@ def test_segmin_twin_skips_fill_slots(n_live):
     and the Pallas kernel's keys in every live slot. A page id out of
     range (negative or past the cache) reads nothing either."""
     d, b = 64, 200
-    q2s, qs, dec8_t, nrm_col, cip, sel = _page_inputs(d, b, seed=n_live)
+    q2s, qs, dec8_t, nrm_col, cipc, seg_cell, sel = _page_inputs(
+        d, b, seed=n_live)
     want = np.asarray(J._ivf_pages_segmin(
         jnp.asarray(q2s), jnp.float32(qs), jnp.asarray(dec8_t),
-        jnp.asarray(nrm_col), jnp.asarray(cip), jnp.asarray(sel), LP, SEG,
-        True))
-    args = [t(q2s), torch.tensor([qs]), t(dec8_t), t(nrm_col), t(cip),
-            t(sel), LP, SEG, torch.tensor([n_live], dtype=torch.int32)]
+        jnp.asarray(nrm_col), jnp.asarray(_expand(cipc, seg_cell, sel)),
+        jnp.asarray(sel), LP, SEG, True))
+    args = [t(q2s), torch.tensor([qs]), t(dec8_t), t(nrm_col), t(cipc),
+            t(seg_cell), t(sel), LP, SEG,
+            torch.tensor([n_live], dtype=torch.int32)]
     got = T.ivf_pages_segmin(*args).numpy()
     live = n_live * SPT
     np.testing.assert_array_equal(got[:live], want[:live])
     assert (got[live:] == T.I32_MAX).all()
-    args[5] = t(np.array([3, -1, 0, 6, 1, 0, 0], np.int32))
+    args[6] = t(np.array([3, -1, 0, 6, 1, 0, 0], np.int32))
     off = T.ivf_pages_segmin(*args).numpy()
     bad = np.repeat(np.array([0, 1, 0, 1, 0, 0, 0], bool), SPT)
     assert (off[bad] == T.I32_MAX).all()
@@ -146,10 +168,11 @@ def test_page_smem_budget(d, nst, smem, fits):
     if nst == 3:
         return
     q2s = torch.zeros((128, d), dtype=torch.int8)
-    cip = torch.zeros((LP // 16, 128))
     args = (q2s, torch.ones(1), torch.zeros((d, LP), dtype=torch.int8),
-            torch.zeros((LP, 1)), cip, torch.zeros(1, dtype=torch.int32),
-            LP, 16, torch.ones(1, dtype=torch.int32))
+            torch.zeros((LP, 1)), torch.zeros((1, 128)),
+            torch.zeros(LP // 16, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), LP, 16,
+            torch.ones(1, dtype=torch.int32))
     if fits:
         T._check_launch(*args)
     else:
@@ -235,14 +258,14 @@ def test_cpu_wrapper_runs_twin_without_building(monkeypatch):
         raise AssertionError("the CPU path must not load the kernels")
     monkeypatch.setattr(_build, "load", refuse)
     before = T.ivf_pages_segmin.launches
-    q2s, qs, dec8_t, nrm_col, cip, sel = map(
+    q2s, qs, dec8_t, nrm_col, cipc, seg_cell, sel = map(
         lambda a: torch.as_tensor(np.asarray(a)), _page_inputs(64, 128, 0))
-    T.ivf_pages_segmin(q2s, qs.reshape(1), dec8_t, nrm_col, cip, sel, LP,
-                       SEG)
+    T.ivf_pages_segmin(q2s, qs.reshape(1), dec8_t, nrm_col, cipc, seg_cell,
+                       sel, LP, SEG)
     assert T.ivf_pages_segmin.launches == before
     with pytest.raises(ValueError):
         T.ivf_pages_segmin(q2s.to("meta"), qs.reshape(1), dec8_t, nrm_col,
-                           cip, sel, LP, SEG)
+                           cipc, seg_cell, sel, LP, SEG)
     assert any(s.endswith("ivf_scan.cu") for s in _build._sources())
     assert T.ivf_pages_segmin.symbol == "cvt_ivf_pages_segmin"
-    assert len(T.ivf_pages_segmin.argtypes) == 16
+    assert len(T.ivf_pages_segmin.argtypes) == 18

@@ -50,12 +50,13 @@ def _adc_segmin_cached(g):
 
 
 def _ivf_page(g):
-    lp, seg, bpad, d, n_pages, sel = 512, 32, 128, 64, 4, [2, 0, 3]
+    lp, seg, bpad, d, n_pages, sel, kc = 512, 32, 128, 64, 4, [2, 0, 3], 5
     return (_ints(g, -127, 128, (bpad, d), torch.int8), torch.ones(1),
             _ints(g, -127, 128, (d, n_pages * lp), torch.int8),
             torch.rand((n_pages * lp, 1), generator=g) * 1e5,
-            torch.rand((len(sel) * lp // seg, bpad), generator=g) * 1e5,
-            torch.tensor(sel, dtype=torch.int32), lp, seg,
+            torch.rand((kc, bpad), generator=g) * 1e5,
+            _ints(g, -1, kc, (n_pages * lp // seg,), torch.int32)
+            .sort().values, torch.tensor(sel, dtype=torch.int32), lp, seg,
             torch.tensor([2], dtype=torch.int32))
 
 

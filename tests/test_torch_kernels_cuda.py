@@ -182,9 +182,11 @@ def test_loaded_index_lands_on_the_card(card, tmp_path):
     assert torch.equal(i.cpu(), idx.search(q, 10)[1])
 
 
-def _page_args(dev, d=128, b=200, seg=32, seed=0):
+def _page_args(dev, d=128, b=200, seg=32, seed=0, kc=10):
     """Seeded ivf_page arguments over 6 pages of 512 rows: BIG pad rows
-    and a page of them (page 4, slot 1), BIG-masked cip entries, masked
+    and a page of them (page 4, slot 1), kc cells in cell order over the
+    segments with dead segments and a page of them (page 1, slot 4),
+    BIG-masked coarse terms and a cell masked for every query, masked
     padded query columns (Bpad > B) and a repeated fill page in sel."""
     g = torch.Generator().manual_seed(seed)
     nvcap, _ = V._ivf_pack_caps(seg, d)
@@ -197,14 +199,18 @@ def _page_args(dev, d=128, b=200, seg=32, seed=0):
     nrm = torch.rand((n_pages * lp, 1), generator=g) * 0.9 * nvcap * qs
     nrm[torch.rand(nrm.shape, generator=g) < 0.1] = V.BIG
     nrm[4 * lp:5 * lp] = V.BIG
+    seg_cell = torch.randint(0, kc, (n_pages * spt,), generator=g,
+                             dtype=torch.int32).sort().values
+    seg_cell[torch.rand(seg_cell.shape, generator=g) < 0.1] = -1
+    seg_cell[spt:2 * spt] = -1
     sel = torch.tensor([3, 4, 0, 5, 1, 0, 0], dtype=torch.int32)
-    cip = torch.rand((7 * spt, bpad), generator=g) * 0.9 * 127 ** 2 * d * qs
-    cip[torch.rand(cip.shape, generator=g) < 0.3] = V.BIG
-    cip[-2 * spt:] = V.BIG
-    cip[:, b:] = V.BIG
+    cipc = torch.rand((kc, bpad), generator=g) * 0.9 * 127 ** 2 * d * qs
+    cipc[torch.rand(cipc.shape, generator=g) < 0.3] = V.BIG
+    cipc[kc // 2] = V.BIG
+    cipc[:, b:] = V.BIG
     q2s = torch.randint(-127, 128, (bpad, d), generator=g, dtype=torch.int8)
     q2s[b:] = 0
-    return [x.to(dev) for x in (q2s, qs, dec8_t, nrm, cip, sel)]
+    return [x.to(dev) for x in (q2s, qs, dec8_t, nrm, cipc, seg_cell, sel)]
 
 
 def _ivf_packable(seg: int, d: int) -> bool:
@@ -230,7 +236,7 @@ def test_ivf_page_kernel_equals_twin(card, seg, d, b):
     assert V.ivf_pages_segmin.launches == before + 1
     want = V.ivf_pages_segmin_plain(*args, 512, seg)
     assert torch.equal(got, want)
-    # the page of pad rows under masked cip carries both float32 markers
+    # the page of pad rows under masked terms carries both float32 markers
     _, marker = V._ivf_pack_caps(seg, d)
     spt = 512 // seg
     floor = (2 * int(V._marker_f32(marker)) - 127 ** 2 * d) * seg
@@ -244,7 +250,7 @@ def test_ivf_page_kernel_skips_fill_slots(card, n_live):
     are the full scan's keys."""
     args = _page_args(card)
     full = V.ivf_pages_segmin_plain(*args, 512, 32)
-    args[5] = torch.tensor([3, -1, 0, 6, 1, 0, 0], dtype=torch.int32,
+    args[6] = torch.tensor([3, -1, 0, 6, 1, 0, 0], dtype=torch.int32,
                            device=card)
     live = torch.tensor([n_live], dtype=torch.int32, device=card)
     got = V.ivf_pages_segmin(*args, 512, 32, live)
@@ -268,28 +274,32 @@ def test_ivf_page_two_tile_ring(card):
 
 
 def test_ivf_wrapper_refuses_bad_inputs(card):
-    q2s, qs, dec8_t, nrm, cip, sel = _page_args(card)
+    q2s, qs, dec8_t, nrm, cipc, seg_cell, sel = _page_args(card)
     with pytest.raises(ValueError):
-        V.ivf_pages_segmin(q2s, qs, dec8_t.cpu(), nrm, cip, sel, 512, 32)
-    with pytest.raises(TypeError):
-        V.ivf_pages_segmin(q2s, qs, dec8_t, nrm.double(), cip, sel, 512, 32)
-    with pytest.raises(ValueError):
-        V.ivf_pages_segmin(q2s, qs, dec8_t, nrm, cip.T.contiguous().T, sel,
+        V.ivf_pages_segmin(q2s, qs, dec8_t.cpu(), nrm, cipc, seg_cell, sel,
                            512, 32)
-    with pytest.raises(ValueError):
-        V.ivf_pages_segmin(q2s, qs, dec8_t, nrm, cip[:-16], sel, 512, 32)
     with pytest.raises(TypeError):
-        V.ivf_pages_segmin(q2s, qs, dec8_t, nrm, cip, sel, 512, 32,
+        V.ivf_pages_segmin(q2s, qs, dec8_t, nrm.double(), cipc, seg_cell,
+                           sel, 512, 32)
+    with pytest.raises(ValueError):
+        V.ivf_pages_segmin(q2s, qs, dec8_t, nrm, cipc.T.contiguous().T,
+                           seg_cell, sel, 512, 32)
+    with pytest.raises(ValueError):
+        V.ivf_pages_segmin(q2s, qs, dec8_t, nrm, cipc[:, :128].contiguous(),
+                           seg_cell, sel, 512, 32)
+    with pytest.raises(TypeError):
+        V.ivf_pages_segmin(q2s, qs, dec8_t, nrm, cipc, seg_cell, sel, 512, 32,
                            torch.ones(1, dtype=torch.int64, device=card))
     with pytest.raises(ValueError):
-        V.ivf_pages_segmin(q2s, qs, dec8_t, nrm, cip, sel, 512, 32,
+        V.ivf_pages_segmin(q2s, qs, dec8_t, nrm, cipc, seg_cell, sel, 512, 32,
                            torch.ones(2, dtype=torch.int32, device=card))
     wide = torch.zeros((128, 900), dtype=torch.int8, device=card)
     with pytest.raises(ValueError, match="227 KB"):      # D = 900 at seg 16
         V.ivf_pages_segmin(wide, qs, torch.zeros((900, 512), dtype=torch.int8,
                                                  device=card),
                            torch.zeros((512, 1), device=card),
-                           torch.zeros((32, 128), device=card),
+                           torch.zeros((1, 128), device=card),
+                           torch.zeros(32, dtype=torch.int32, device=card),
                            torch.zeros(1, dtype=torch.int32, device=card),
                            512, 16)
 
